@@ -1,0 +1,56 @@
+"""PyTorch port: the package imports nothing of JAX or of the JAX package,
+and its entry points default to the card."""
+
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def test_port_imports_no_jax_and_no_reference():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.')]\n"
+        "for m in mods: importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print(len(mods))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True,
+                         env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""})
+    assert int(out.stdout.strip()) >= 15  # every module of the slice
+
+
+def test_port_sources_name_no_jax_import():
+    pattern = re.compile(r"^\s*(import jax|from jax|import repro\b|from repro[ .])")
+    files = [*sorted((ROOT / "src" / "repro_torch").rglob("*.py")),
+             ROOT / "chip_smoke.py"]
+    hits = [f"{f}:{i}" for f in files
+            for i, line in enumerate(f.read_text().splitlines(), 1)
+            if pattern.match(line)]
+    assert not hits, hits
+
+
+def test_default_device_entry_points_raise_without_a_card(monkeypatch):
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    from repro_torch.serving import ServingEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("qwen3-4b", reduced=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_model(cfg, seed=0)
+    params = init_model(cfg, seed=0, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(cfg, params, batch=1, prompt_len=2, gen_len=2)
+    from repro_torch.models import forward_fn
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        forward_fn(cfg)(cfg, params, {"tokens": [[1, 2]]})
