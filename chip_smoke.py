@@ -8,14 +8,23 @@ failing the run on any mismatch:
 2. hold every kernel against its plain PyTorch version on the card, at the
    main path's shapes and at ragged ones, and time kernel, plain version
    and a library call of the same function;
-3. serve full-width qwen3-4b (random weights from a seed, bf16) at W4A4
+3. the search path: the ``template_eval`` kernel bit-equal to its plain
+   version at the search's shapes; four tensor searches
+   (``get_engine("tensor").run(SearchJob(...))``, 2-bit and full-size
+   4-bit multipliers), each run through the kernel and again through the
+   plain version on the same device and seed, whose outcomes must be
+   identical; their sound results go through ``OperatorStore`` and
+   ``load_mul_frontier`` to a 16x16 LUT that full-width qwen3-4b serves at
+   W4A4, with tokens and the first position's logits identical to the
+   plain LUT matmul's;
+4. serve full-width qwen3-4b (random weights from a seed, bf16) at W4A4
    through ``ServingEngine.serve``, then one batch again with the plain LUT
    matmul: the generated tokens must be identical;
-4. serve one batch at W8A8 on a composed stack, and again with the plain
+5. serve one batch at W8A8 on a composed stack, and again with the plain
    LUT matmul: identical tokens;
-5. run ``forward_lm`` at B=2, S=512, W4A4: the first position's logits
+6. run ``forward_lm`` at B=2, S=512, W4A4: the first position's logits
    must equal the plain path's bit for bit;
-6. print the kernels line (launches on the main path, deviations, times,
+7. print the kernels line (launches on the main path, deviations, times,
    bounds), where a decode step's time goes, the card's name and power
    limit, and a last line of JSON.
 
@@ -28,6 +37,7 @@ Details go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -37,9 +47,12 @@ ROOT = Path(__file__).resolve().parent
 
 # H100 SXM published peaks (NVIDIA data sheet, dense): HBM3 bytes/s, and
 # operations/s for int8 (the LUT products are 8-bit operand MACs) and
-# bf16 tensor cores
+# bf16 tensor cores.  int32 is the CUDA-core integer rate: 132 SMs x 64
+# INT32 lanes x the 1.98 GHz boost clock, about 16.7 T op/s (the bitwise
+# template_eval work has no tensor-core form)
 HBM_BPS = 3.35e12
-PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12}
+PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12,
+            "int32": 132 * 64 * 1.98e9}
 
 # qwen3-4b MLP matmul shapes: decode (M = batch) and the B=2 x S=512
 # forward (M = 1024), for w1/w3 (K=d_model) and w2 (K=d_ff)
@@ -57,6 +70,22 @@ FLASH_CASES = [
     (1, 4, 2, 100, 300, 128, "float32", None),
 ]
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
+# template_eval (benchmark, T, P): the cases of
+# tests/test_kernels_template_eval.py and the population at and past the
+# Pallas block of 256; the search jobs' own shapes (search_shapes) and one
+# large population for a device time are checked and timed besides
+TE_CASES = [("adder_i4", 4, 16), ("adder_i6", 8, 64), ("mul_i4", 6, 33),
+            ("mul_i6", 10, 128), ("mul_i8", 12, 16), ("adder_i4", 4, 256),
+            ("adder_i4", 4, 257)]
+TE_LARGE = ("mul_i8", 16, 65536)
+# the tensor jobs: the smoke sweep's 2-bit multipliers with its tensor
+# options (repro/fleet/plan.py), and the 4-bit multiplier at
+# tensor_search's defaults with the nightly sweep's ETs 1/8 and 1/4 of 225;
+# the budget is a safety net the generation count always beats
+SMOKE_TENSOR = {"population": 512, "generations": 24, "elites": 64, "keep": 4}
+SEARCH_JOBS = [("mul", 2, 1, SMOKE_TENSOR), ("mul", 2, 2, SMOKE_TENSOR),
+               ("mul", 4, 28, {}), ("mul", 4, 56, {})]
+SEARCH_BUDGET_S = 600.0
 
 
 class SmokeError(RuntimeError):
@@ -208,24 +237,334 @@ def phase_kernels(torch, results: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phases 3-5: the main paths at full width
+# phase 3: the search path
+# ---------------------------------------------------------------------------
+def template_eval_bound(lits, sel, W: int, S: int) -> tuple[float, str]:
+    """The least time for the function on these inputs.  Bytes: the
+    parameter rows, the packed words and the exact values read once, two
+    int32 results per candidate written once.  Operations, per (candidate,
+    word), what this population needs: one AND per literal that is not
+    IGNORE in a product some output selects (a NEG's complement folds into
+    it), one OR per selected (output, product), and 10 (m + 1) for the
+    error of all 32 lanes at once in bit-sliced form: the outputs are
+    already the value's bit planes, so subtracting the exact value's
+    planes, the conditional negate, the max (a scan from the top plane)
+    and the popcount-weighted sum each take 2-3 word operations per plane
+    of the (m + 1)-bit difference.  At the int32 rate."""
+    P, T, n = lits.shape
+    m = sel.shape[1]
+    used = (sel != 0).any(dim=1)                                   # (P, T)
+    lit_ops = int(((lits != 2) & used[:, :, None]).sum())
+    or_ops = int((sel != 0).sum())
+    nbytes = P * (T * n + m * T) * 4 + n * W * 4 + S * 4 + 8 * P
+    ops = W * (lit_ops + or_ops + P * 10 * (m + 1))
+    return bound(nbytes, ops, "int32")
+
+
+def search_shapes() -> list[tuple[str, int, int]]:
+    """(benchmark, T, P) of every search job's template_eval calls: T is
+    the job's pit or 2 m, P its population, at tensor_search's defaults
+    where the job sets none."""
+    from repro_torch.core.engine import SearchJob
+
+    shapes = []
+    for kind, bits, et, opts in SEARCH_JOBS:
+        exact = SearchJob(kind, bits, et, "tensor").exact()
+        opts = search_defaults() | opts
+        shape = (exact.name, opts["pit"] or 2 * exact.n_outputs,
+                 opts["population"])
+        if shape not in shapes:
+            shapes.append(shape)
+    return shapes
+
+
+def search_defaults() -> dict:
+    import inspect
+
+    from repro_torch.core.tensor_search import tensor_search
+
+    return {k: v.default for k, v in
+            inspect.signature(tensor_search).parameters.items()
+            if v.default is not inspect.Parameter.empty}
+
+
+def kernel_device_ms(torch, fn, name: str, iters: int = 20):
+    """The device time of one launch of the kernel whose name contains
+    ``name``, from ``torch.profiler`` over ``iters`` calls: the kernel
+    alone, without the host's launch gaps that CUDA events around a call
+    include.  None when the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if name in e.key and getattr(e, "self_device_time_total", 0) > 0]
+    count = sum(e.count for e in rows)
+    if not count:
+        return None
+    return sum(e.self_device_time_total for e in rows) / 1e3 / count
+
+
+def search_kernel_checks(torch, results: dict) -> None:
+    from repro_torch.core.arith import benchmark
+    from repro_torch.core.circuits import input_truth_tables
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import template_eval as te
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    # largest population first: the kernels line reports the first timed row
+    timed = sorted(search_shapes(), key=lambda c: -c[2]) + [TE_LARGE]
+    for bench, T, P in TE_CASES + timed:
+        exact = benchmark(bench)
+        n, m = exact.n_inputs, exact.n_outputs
+        lits = torch.randint(0, 3, (P, T, n), generator=gen, device="cuda",
+                             dtype=torch.int32)
+        sel = (torch.rand((P, m, T), generator=gen, device="cuda") < 0.4).to(torch.int32)
+        # the words as int32 with the same bits, converted once, as the
+        # search hands them to both versions
+        tt = ref.word_bits_int32(torch.from_numpy(input_truth_tables(n))).cuda()
+        ev = torch.from_numpy(exact.eval_words().astype("int32")).cuda()
+        wce, esum = te.template_eval(lits, sel, tt, ev)
+        torch.cuda.synchronize()
+        w_ref, s_ref = ref.template_eval(lits, sel, tt, ev)
+        require(torch.equal(wce, w_ref) and torch.equal(esum, s_ref),
+                f"template_eval {bench} T={T} P={P}: differs from the plain "
+                f"version (wce {int((wce - w_ref).abs().max())}, esum "
+                f"{int((esum - s_ref).abs().max())})")
+        if (bench, T, P) not in timed:
+            log(f"[search] template_eval {bench} T={T} P={P}: bit-equal")
+            continue
+        ms = time_ms(torch, lambda: te.template_eval(lits, sel, tt, ev), iters=50)
+        dev_ms = kernel_device_ms(torch, lambda: te.template_eval(lits, sel, tt, ev),
+                                  "template_eval_kernel")
+        plain_ms = time_ms(torch, lambda: ref.template_eval(lits, sel, tt, ev),
+                           iters=5)
+        bms, by = template_eval_bound(lits, sel, tt.shape[1], ev.shape[0])
+        results["timings"].append({
+            "name": "template_eval", "shape": [bench, T, P], "ms": ms,
+            "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": None,
+            "bound_ms": bms, "bound_by": by, "max_abs_err": 0})
+        log(f"[search] template_eval {bench} T={T} P={P}: bit-equal; call "
+            f"{ms:.4f} ms (CUDA events), kernel alone {dev_ms} ms (profiler), "
+            f"plain {plain_ms:.3f} ms, bound {bms:.6f} ms ({by}), no library "
+            f"call")
+    results["max_err"]["template_eval"] = 0
+
+
+def outcome_view(outcome) -> tuple:
+    """Everything a search outcome decides: the candidates in order with
+    their netlists, params bytes, areas, proxies and fitness, and the
+    stats.  Wall times are measurements and stay out."""
+    from repro_torch.library.store import circuit_to_dict
+
+    return (outcome.engine, outcome.benchmark, outcome.et, outcome.stats,
+            [(c.area, c.proxies, c.meta, c.params.lits.tobytes(),
+              c.params.sel.tobytes(), circuit_to_dict(c.circuit))
+             for c in outcome.results])
+
+
+def run_split(torch, eng, job):
+    """One search run, its wall time split from outside: the host clock up
+    to the harvest, the card synchronised there (the generation loop and
+    the final scoring), and over the harvest."""
+    from repro_torch.core import tensor_search as ts
+
+    real = ts.harvest_population
+    mark = {}
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        mark["harvest"] = time.perf_counter()
+        return real(*args, **kwargs)
+
+    ts.harvest_population = timed
+    try:
+        t0 = time.perf_counter()
+        out = eng.run(job)
+        t1 = time.perf_counter()
+    finally:
+        ts.harvest_population = real
+    return out, {"loop_s": mark["harvest"] - t0, "harvest_s": t1 - mark["harvest"]}
+
+
+def kernel_run_device_s(torch, eng, job):
+    """A further run through the kernel under ``torch.profiler``: its
+    outcome, and the device time of its template_eval kernels (None when
+    the profiler records none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = eng.run(job)
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if "template_eval_kernel" in e.key)
+    return out, (us / 1e6 if us else None)
+
+
+def phase_search(torch, results: dict) -> Path:
+    """The search path on the card; returns the library it filled."""
+    from repro_torch.core.engine import SearchJob, get_engine
+    from repro_torch.core.synth import area
+    from repro_torch.library.store import OperatorStore
+
+    search_kernel_checks(torch, results)
+    library = ROOT / "build" / "search_library"
+    shutil.rmtree(library, ignore_errors=True)
+    store = OperatorStore(library)
+    runs = []
+    expected = 0
+    reset_counts()
+    for kind, bits, et, opts in SEARCH_JOBS:
+        job = SearchJob(kind, bits, et, "tensor", budget_s=SEARCH_BUDGET_S)
+        eng = get_engine("tensor", backend="auto", **opts)
+        out, split = run_split(torch, eng, job)
+        plain, plain_split = run_split(
+            torch, get_engine("tensor", backend="ref", **opts), job)
+        again, kern_s = kernel_run_device_s(torch, eng, job)
+        want_gens = (search_defaults() | opts)["generations"]
+        require(out.stats["generations"] == want_gens,
+                f"{job.describe()}: ran {out.stats['generations']} of "
+                f"{want_gens} generations (cut by the budget)")
+        require(outcome_view(out) == outcome_view(plain),
+                f"{job.describe()}: the outcome through the kernel differs "
+                f"from the one through the plain version")
+        require(outcome_view(again) == outcome_view(out),
+                f"{job.describe()}: a second run through the kernel differs")
+        expected += 2 * (out.stats["generations"] + 1)
+        for c in out.results:
+            store.put_circuit(c.circuit, job.signature(), area=c.area,
+                              source="tensor", proxies=c.proxies,
+                              params=c.params, meta=c.meta)
+        exact_area = area(job.exact())
+        best = out.best.area if out.results else None
+        rest = None if kern_s is None else split["loop_s"] - kern_s
+        kern = ("not measured" if kern_s is None else
+                f"{kern_s:.4f} s of device time in a profiled rerun, rest "
+                f"{rest:.4f} s")
+        log(f"[search] {job.describe()}: {len(out.results)} sound result(s), "
+            f"best area {best} vs exact {exact_area}; kernel run "
+            f"{out.wall_s:.4f} s = generation loop and final scoring "
+            f"{split['loop_s']:.4f} s (template_eval kernels {kern}) "
+            f"+ harvest {split['harvest_s']:.4f} s; plain run "
+            f"{plain.wall_s:.4f} s (loop {plain_split['loop_s']:.4f} s, "
+            f"harvest {plain_split['harvest_s']:.4f} s); outcomes identical")
+        runs.append({"job": job.describe(), "results": len(out.results),
+                     "best_area": best, "exact_area": exact_area,
+                     "stats": out.stats, "wall_s": out.wall_s, **split,
+                     "kernel_device_s": kern_s, "rest_of_loop_s": rest,
+                     "plain_wall_s": plain.wall_s,
+                     "plain_loop_s": plain_split["loop_s"],
+                     "plain_harvest_s": plain_split["harvest_s"]})
+    counts = read_counts()
+    results["launches"]["template_eval"] = counts["template_eval"]
+    require(counts["template_eval"] == expected,
+            f"template_eval launches {counts['template_eval']} != "
+            f"sum of (generations + 1) over the kernel runs = {expected}")
+    log(f"[search] template_eval launches over the kernel runs (two a job): "
+        f"{counts['template_eval']} = sum of (generations + 1)")
+    results["search"] = {"jobs": runs, "library_records": len(store.query())}
+    return library
+
+
+def phase_search_serve(torch, cfg, params, library: Path, results: dict) -> None:
+    """Library -> LUT -> serve: the cheapest frontier multiplier, compiled
+    to a 16x16 table and stacked over every layer, served at W4A4 through
+    the kernels and again through the plain LUT matmul."""
+    import numpy as np
+
+    from repro_torch.library.compile import load_mul_frontier
+    from repro_torch.models import forward_fn
+    from repro_torch.precision.widths import exact_table
+    from repro_torch.serving import ServingEngine, steady, synth_requests
+
+    jobs = results["search"]["jobs"]
+    found4 = any(j["results"] for j in jobs if j["job"].startswith("mul_i8"))
+    compiled, exact_area, bits = load_mul_frontier(library)
+    require(bits == (4 if found4 else 2),
+            f"frontier block width {bits}, expected {4 if found4 else 2}")
+    rec, lut = compiled[0]
+    require(lut.lut.shape == (16, 16) and lut.lut.dtype == np.int32,
+            f"bad compiled table {lut.lut.shape} {lut.lut.dtype}")
+    stack = np.stack([lut.lut] * cfg.n_layers)
+    log(f"[search serve] frontier of {len(compiled)} {bits}-bit block(s); "
+        f"cheapest {rec.key}: area {rec.area} vs exact {exact_area}, block "
+        f"wce {rec.wce}, 16x16 table wce {lut.wce16}, mae {lut.mae16:.3f}")
+    last = synth_requests(steady(1, 4, prompt_len=16, gen_len=16),
+                          cfg.vocab_size, 0)[-1]
+    eng = ServingEngine(cfg.with_approx_mlp(4), params, batch=4, prompt_len=16,
+                        gen_len=16, luts=stack)
+    reset_counts()
+    st = eng.run_batch(last)
+    counts = read_counts()
+    require(counts["approx_matmul_w4"] > 0,
+            "the searched LUT's serve launched no approx_matmul_w4")
+    plain = ServingEngine(cfg.with_approx_mlp(4), params, batch=4,
+                          prompt_len=16, gen_len=16, luts=stack, backend="ref")
+    plain.run_batch(last)
+    same = bool((plain.last_tokens == eng.last_tokens).all())
+    require(same, "tokens served on the searched LUT differ from the plain path")
+    log(f"[search serve] W4A4 on the searched LUT: approx_matmul_w4 launches "
+        f"{counts['approx_matmul_w4']}, {st.ms_per_step:.2f} ms/step; tokens "
+        f"identical to the plain path: {eng.last_tokens[0].tolist()}")
+    # a degenerate output (one token repeated) would hide a wrong table
+    # behind equal tokens, so hold the logits too: the LUT path is integer-
+    # exact and at position 0 attention returns v on both paths, so the
+    # first position's logits must be equal bit for bit; and they must
+    # differ from the exact table's, or the searched table was not served
+    cfg4 = cfg.with_approx_mlp(4)
+    fwd = forward_fn(cfg4)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 16), generator=gen,
+                                     device="cuda")}
+    got = fwd(cfg4, params, batch, lut=stack)[0][:, 0]
+    want = fwd(cfg4, params, batch, lut=stack, backend="ref")[0][:, 0]
+    logits_equal = bool(torch.equal(got, want))
+    require(logits_equal, "position-0 logits on the searched LUT differ from "
+            f"the plain path (max |d| {float((got - want).abs().max()):.3g})")
+    exact = np.stack([exact_table("mul", 4).astype(np.int32)] * cfg.n_layers)
+    on_exact = fwd(cfg4, params, batch, lut=exact)[0][:, 0]
+    d_exact = float((got - on_exact).abs().max())
+    require(d_exact > 0 or lut.wce16 == 0,
+            "position-0 logits on the searched LUT equal the exact table's")
+    log(f"[search serve] position-0 logits (4 x {cfg.vocab_size}) on the "
+        f"searched LUT: bit-equal to the plain path; max |d| from the exact "
+        f"table's {d_exact:.4g}")
+    results["search"]["serve"] = {
+        "record": rec.key, "area": rec.area, "exact_area": exact_area,
+        "bits": bits, "wce16": lut.wce16, "frontier": len(compiled),
+        "approx_matmul_w4_launches": counts["approx_matmul_w4"],
+        "ms_per_step": st.ms_per_step, "tokens_identical": same,
+        "position0_logits_equal": logits_equal,
+        "position0_max_abs_d_from_exact": d_exact}
+
+
+# ---------------------------------------------------------------------------
+# phases 4-6: the main paths at full width
 # ---------------------------------------------------------------------------
 def reset_counts() -> None:
     from repro_torch.kernels import approx_matmul as am
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import template_eval as te
 
     am.approx_matmul_w4.launches = 0
     am.approx_matmul_w8.launches = 0
     fa.flash_attention.launches = 0
+    te.template_eval.launches = 0
 
 
 def read_counts() -> dict:
     from repro_torch.kernels import approx_matmul as am
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import template_eval as te
 
     return {"approx_matmul_w4": am.approx_matmul_w4.launches,
             "approx_matmul_w8": am.approx_matmul_w8.launches,
-            "flash_attention": fa.flash_attention.launches}
+            "flash_attention": fa.flash_attention.launches,
+            "template_eval": te.template_eval.launches}
 
 
 def stacks(n_layers: int):
@@ -446,6 +785,7 @@ def main() -> int:
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     results["build"] = phase_build()
     phase_kernels(torch, results)
+    library = phase_search(torch, results)
 
     cfg = get_config("qwen3-4b")
     t0 = time.perf_counter()
@@ -455,6 +795,7 @@ def main() -> int:
         f"{cfg.n_params() / 1e9:.2f} B params in {cfg.dtype}, init "
         f"{time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
+    phase_search_serve(torch, cfg, params, library, results)
     phase_serve(torch, cfg, params, results)
     phase_forward(torch, cfg, params, results)
 
@@ -463,7 +804,9 @@ def main() -> int:
                "approx_matmul_w8": ("src/repro_torch/kernels/csrc/approx_matmul.cu",
                                     "src/repro/kernels/approx_matmul.py:88"),
                "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
-                                   "src/repro/kernels/flash_attention.py:31")}
+                                   "src/repro/kernels/flash_attention.py:31"),
+               "template_eval": ("src/repro_torch/kernels/csrc/template_eval.cu",
+                                 "src/repro/kernels/template_eval.py:30")}
     kernels = []
     for name, (src, replaces) in sources.items():
         t = next(r for r in results["timings"] if r["name"] == name)
@@ -473,7 +816,8 @@ def main() -> int:
                         "max_abs_err": results["max_err"][name],
                         "ms": t["ms"], "plain_ms": t["plain_ms"],
                         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                        "library_ms": t["library_ms"], "shape": t["shape"]})
+                        "library_ms": t["library_ms"], "shape": t["shape"],
+                        **({"device_ms": t["device_ms"]} if "device_ms" in t else {})})
     for k in kernels:
         require(k["launches"] > 0, f"{k['name']} was not launched on its main path")
     results["kernels"] = kernels

@@ -1,11 +1,17 @@
-"""Parameters of the JAX package, as numpy, into the port's layout.
+"""Objects of the JAX package, as numpy, into the port's types.
 
-``params_from_jax(jax.tree.map(np.asarray, params))`` gives the port the
+Model weights: ``params_from_jax(jax.tree.map(np.asarray, params))`` gives the port the
 weights the reference computes on, so the two are compared on the same
 weights and never on two random inits.  The reference stacks per-layer
 parameters on a leading axis of ``params["layers"]``; the port keeps one
 dict per layer.  Dtypes are kept: a bfloat16 array (numpy's ``ml_dtypes``
 type) becomes a ``torch.bfloat16`` tensor bit for bit.
+
+Search objects: :func:`circuit_from_jax`, :func:`template_params_from_jax`
+and :func:`signature_from_jax` carry a netlist, a parameter assignment
+and an operator signature across through numpy arrays and the operator
+store's dict format, so the tests hand both packages the same ones.  They
+read attributes only and import nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -15,7 +21,10 @@ from typing import Any
 import numpy as np
 import torch
 
+from .core.circuits import Circuit
+from .core.templates import TemplateParams
 from .device import resolve_device
+from .library.store import OperatorSignature, circuit_from_dict
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
@@ -47,3 +56,26 @@ def _index(x, i: int):
     if isinstance(x, dict):
         return {k: _index(v, i) for k, v in x.items()}
     return np.asarray(x)[i]
+
+
+def circuit_from_jax(c) -> Circuit:
+    """A ``repro.core.circuits.Circuit`` -> the port's, through the
+    store's dict format."""
+    return circuit_from_dict({
+        "n_inputs": c.n_inputs,
+        "nodes": [[g.op.value, list(g.args)] for g in c.nodes],
+        "outputs": list(c.outputs),
+        "name": c.name,
+    })
+
+
+def template_params_from_jax(p) -> TemplateParams:
+    """A ``repro.core.templates.TemplateParams`` -> the port's."""
+    return TemplateParams(np.array(p.lits, dtype=np.int8),
+                          np.array(p.sel, dtype=bool))
+
+
+def signature_from_jax(s) -> OperatorSignature:
+    """A ``repro.library.store.OperatorSignature`` -> the port's."""
+    return OperatorSignature(s.op_kind, int(s.bits), s.error_metric,
+                             int(s.threshold))

@@ -16,6 +16,7 @@ import torch
 from . import approx_matmul as _am
 from . import flash_attention as _fa
 from . import ref
+from . import template_eval as _te
 
 Backend = Literal["auto", "ref"]
 
@@ -26,6 +27,14 @@ def use_kernel(x: torch.Tensor, backend: Backend) -> bool:
     if backend != "auto":
         raise ValueError(f"unknown backend {backend!r}; 'auto' or 'ref'")
     return x.is_cuda
+
+
+def template_eval(lits, sel, in_tt, exact_vals, *, backend: Backend = "auto"):
+    """Population worst-case and total error; see
+    :func:`repro_torch.kernels.ref.template_eval`."""
+    if use_kernel(lits, backend):
+        return _te.template_eval(lits, sel, in_tt, exact_vals)
+    return ref.template_eval(lits, sel, in_tt, exact_vals)
 
 
 def approx_matmul(a, b, lut, *, backend: Backend = "auto"):

@@ -16,6 +16,66 @@ import torch
 # rows are chunked so one chunk stays under about this many bytes
 _GATHER_BYTES = 1 << 30
 
+USE, NEG = 0, 1
+ALL_ONES = 0xFFFFFFFF
+
+
+def words64(in_tt: torch.Tensor) -> torch.Tensor:
+    """Packed truth-table words as int64 holding 0 ... 2**32 - 1.
+
+    PyTorch's ``uint32`` has ``&`` and ``|`` on the CPU but no ``~``,
+    ``>>`` or comparison, so the plain version carries each word in an
+    int64 and writes ``~x`` as ``x ^ 0xFFFFFFFF``.  Takes uint32 words,
+    or int32 words with the same bits (the kernel's view), or int64 ones.
+    """
+    w = in_tt.to(torch.int64)
+    return w & ALL_ONES if in_tt.dtype == torch.int32 else w
+
+
+def word_bits_int32(in_tt: torch.Tensor) -> torch.Tensor:
+    """Packed words (uint32, int32 or int64 holding 0 ... 2**32 - 1) as an
+    int32 tensor with the same 32 bits: the form the kernel reads as
+    ``uint32_t``.  Converted once, where the words are made."""
+    if in_tt.dtype == torch.int32:
+        return in_tt.contiguous()
+    w = words64(in_tt)
+    return torch.where(w >= 1 << 31, w - (1 << 32), w).to(torch.int32).contiguous()
+
+
+def template_eval(
+    lits: torch.Tensor,        # (P, T, n) int32 in {USE, NEG, IGNORE}
+    sel: torch.Tensor,         # (P, m, T) int32 in {0, 1}
+    in_tt: torch.Tensor,       # (n, W) packed input truth tables (words64)
+    exact_vals: torch.Tensor,  # (S,) int32 exact value per assignment
+) -> tuple[torch.Tensor, torch.Tensor]:  # (P,) worst-case, (P,) total |err|
+    """Per candidate, the worst-case and the total |err| of its SHARED
+    template sum-of-products over all ``S`` input assignments, in int32."""
+    P, T, n = lits.shape
+    m = sel.shape[1]
+    W = in_tt.shape[1]
+    S = exact_vals.shape[0]
+
+    tt = words64(in_tt)[None, None, :, :]               # (1, 1, n, W)
+    use_term = torch.where((lits == USE)[..., None], tt, ALL_ONES)
+    neg_term = torch.where((lits == NEG)[..., None], tt ^ ALL_ONES, ALL_ONES)
+    comb = use_term & neg_term                           # (P, T, n, W)
+    prods = comb[:, :, 0, :]
+    for j in range(1, n):
+        prods = prods & comb[:, :, j, :]                 # (P, T, W)
+
+    masked = torch.where((sel != 0)[..., None], prods[:, None, :, :], 0)
+    outs = masked[:, :, 0, :]
+    for t in range(1, T):
+        outs = outs | masked[:, :, t, :]                 # (P, m, W)
+
+    shifts = torch.arange(32, device=lits.device)
+    bits = (outs[..., None] >> shifts) & 1
+    bits = bits.reshape(P, m, W * 32)[:, :, :S].to(torch.int32)   # (P, m, S)
+    weights = (1 << torch.arange(m, device=lits.device, dtype=torch.int32))
+    vals = (bits * weights[None, :, None]).sum(dim=1, dtype=torch.int32)
+    err = (vals - exact_vals.to(torch.int32)[None, :]).abs()
+    return err.max(dim=1).values, err.sum(dim=1, dtype=torch.int32)
+
 
 def approx_matmul(
     a: torch.Tensor,     # (M, K) int32, values in [0, side)

@@ -47,6 +47,11 @@ class WidthSpec:
         bound = 255 if self.bits <= NATIVE_BLOCK_BITS else 255 * 289
         return (2**31 - 1) // bound
 
+    @property
+    def benchmark_name(self) -> str:
+        """The exact reference circuit of this width's multiplier."""
+        return f"mul_i{2 * self.bits}"
+
 
 WIDTHS: dict[int, WidthSpec] = {4: WidthSpec(4), 8: WidthSpec(8)}
 SUPPORTED_WIDTHS: tuple[int, ...] = tuple(sorted(WIDTHS))

@@ -26,7 +26,7 @@ def test_port_imports_no_jax_and_no_reference():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True,
                          env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""})
-    assert int(out.stdout.strip()) >= 15  # every module of the slice
+    assert int(out.stdout.strip()) >= 33  # every module of slices 1 and 2
 
 
 def test_port_sources_name_no_jax_import():
@@ -54,3 +54,37 @@ def test_default_device_entry_points_raise_without_a_card(monkeypatch):
     from repro_torch.models import forward_fn
     with pytest.raises(RuntimeError, match="no CUDA device"):
         forward_fn(cfg)(cfg, params, {"tokens": [[1, 2]]})
+
+
+def test_search_entry_points_raise_without_a_card(monkeypatch):
+    from repro_torch.core.arith import benchmark
+    from repro_torch.core.engine import SearchJob, get_engine
+    from repro_torch.core.tensor_search import tensor_search
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    job = SearchJob("adder", 2, et=2, engine="tensor")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        get_engine("tensor", population=16, generations=1, elites=4).run(job)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tensor_search(benchmark("adder_i4"), 2, population=16, generations=1, elites=4)
+    out = get_engine("tensor", population=16, generations=1, elites=4, device="cpu").run(job)
+    assert out.stats["generations"] == 1
+
+
+def test_search_modules_load_without_jax():
+    code = (
+        "import sys\n"
+        "from repro_torch.core import engine, tensor_search\n"
+        "from repro_torch.library import compile, pareto, store\n"
+        "from repro_torch.kernels import template_eval\n"
+        "from repro_torch import convert\n"
+        "out = engine.get_engine('tensor', population=64, generations=2,"
+        " device='cpu').run(engine.SearchJob('mul', 2, 2, 'tensor'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print(out.stats['generations'])\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True,
+                         env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""})
+    assert out.stdout.strip() == "2"

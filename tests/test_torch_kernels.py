@@ -20,6 +20,7 @@ from repro.precision import compose as jcompose  # noqa: E402
 from repro_torch.kernels import approx_matmul as am  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import template_eval as te  # noqa: E402
 from repro_torch.precision import compose  # noqa: E402
 
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -221,8 +222,79 @@ def test_width_specs_match_jax():
     for bits in (4, 8):
         t, j = tw.get_width(bits), jw.get_width(bits)
         assert (t.side, t.bias, t.qmax, t.max_k) == (j.side, j.bias, j.qmax, j.max_k)
+        assert t.benchmark_name == j.benchmark_name
         assert np.array_equal(tw.exact_table("mul", bits), jw.exact_table("mul", bits))
     stack = np.zeros((3, 256, 256), np.int32)
     assert tw.width_from_stack(stack).bits == jw.width_from_stack(stack).bits == 8
     with pytest.raises(KeyError):
         tw.get_width(5)
+
+
+# ---------------------------------------------------------------------------
+# template_eval
+# ---------------------------------------------------------------------------
+# the cases of tests/test_kernels_template_eval.py, plus the population at
+# and just past the Pallas block of 256
+TEMPLATE_CASES = [("adder_i4", 4, 16), ("adder_i6", 8, 64), ("mul_i4", 6, 33),
+                  ("mul_i6", 10, 128), ("mul_i8", 12, 16),
+                  ("adder_i4", 4, 256), ("adder_i4", 4, 257)]
+
+
+def _population(rng, bench, T, P):
+    from repro.core.arith import benchmark
+    from repro.core.circuits import input_truth_tables
+
+    exact = benchmark(bench)
+    n, m = exact.n_inputs, exact.n_outputs
+    lits = rng.integers(0, 3, size=(P, T, n)).astype(np.int32)
+    sel = (rng.random((P, m, T)) < 0.4).astype(np.int32)
+    return exact, lits, sel, input_truth_tables(n), exact.eval_words().astype(np.int32)
+
+
+@pytest.mark.parametrize("bench,T,P", TEMPLATE_CASES)
+def test_template_eval_matches_jax_and_numpy(bench, T, P, rng):
+    from repro.core.miter import values_from_tables
+    from repro.core.templates import SharedTemplate, TemplateParams
+
+    exact, lits, sel, tt, ev = _population(rng, bench, T, P)
+    jargs = [jnp.asarray(x) for x in (lits, sel, tt, ev)]
+    w_ref, s_ref = jops.template_eval(*jargs, backend="ref")
+    w_pal, s_pal = jops.template_eval(*jargs, backend="pallas_interpret")
+    wce, esum = ops.template_eval(_t(lits), _t(sel), _t(tt), _t(ev))
+    assert wce.dtype == esum.dtype == torch.int32 and wce.shape == (P,)
+    for got, want in ((wce, w_ref), (wce, w_pal), (esum, s_ref), (esum, s_pal)):
+        assert np.array_equal(got.numpy(), np.asarray(want))
+    tpl = SharedTemplate(exact.n_inputs, exact.n_outputs, pit=T)
+    ev64 = ev.astype(np.int64)
+    for p in range(0, P, max(1, P // 9)):
+        tp = TemplateParams(lits[p].astype(np.int8), sel[p].astype(bool))
+        vals = values_from_tables(tpl.eval_outputs(tp), exact.n_inputs)
+        err = np.abs(vals.astype(np.int64) - ev64)
+        assert (int(err.max()), int(err.sum())) == (int(wce[p]), int(esum[p]))
+
+
+def test_template_eval_word_forms_agree(rng):
+    """uint32 words, int32 words with the same bits (the kernel's view) and
+    int64 words give the same result; the int32 view keeps every bit."""
+    _, lits, sel, tt, ev = _population(rng, "mul_i8", 16, 40)
+    want = ref.template_eval(_t(lits), _t(sel), _t(tt), _t(ev))
+    as_i32 = ref.word_bits_int32(_t(tt))
+    assert as_i32.dtype == torch.int32
+    assert np.array_equal(as_i32.numpy().view(np.uint32), tt)
+    for words in (as_i32, _t(tt.astype(np.int64))):
+        got = ref.template_eval(_t(lits), _t(sel), words, _t(ev))
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert ref.words64(_t(tt)).max() == 0xFFFFFFFF
+
+
+def test_template_eval_dispatch_and_wrapper_refusal(rng):
+    _, lits, sel, tt, ev = _population(rng, "mul_i4", 6, 9)
+    args = [_t(x) for x in (lits, sel, tt, ev)]
+    got = ops.template_eval(*args, backend="ref")
+    assert all(torch.equal(g, w) for g, w in zip(got, ops.template_eval(*args)))
+    with pytest.raises(ValueError, match="backend"):
+        ops.template_eval(*args, backend="pallas")
+    before = te.template_eval.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        te.template_eval(*args)
+    assert te.template_eval.launches == before
