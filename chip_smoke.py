@@ -59,6 +59,14 @@ PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12,
 MM_SHAPES = [(4, 2560, 9728), (4, 9728, 2560), (1024, 2560, 9728),
              (1024, 9728, 2560)]
 MM_RAGGED = [(37, 53, 29), (130, 257, 64), (1, 2560, 9728), (64, 9728, 2560)]
+# the tensor-core kernels' tile edges: activation rows around the 8-, 64-
+# and 128-row tiles, depths ending inside a 16-deep stage, columns ending
+# inside a 128-column block, and rows whose codes are not 16-byte aligned
+MM_EDGES = ([(M, 300, 200) for M in (1, 4, 8, 9, 63, 64, 65, 256, 1024)]
+            + [(257, 300, 129), (9, 53, 129), (65, 53, 129)])
+# W8A8 at its overflow edge: every code and tile entry 255 at K = max_k
+# gives 255 * 289 * 29,140 = 2,147,472,300 in every entry
+MM_OVERFLOW = (3, 29140, 70)
 # (B, H, Hkv, Lq, Lk, D, dtype, window)
 FLASH_CASES = [
     (2, 32, 8, 512, 512, 128, "bfloat16", None),
@@ -134,7 +142,7 @@ def phase_build() -> dict:
     log(f"[build] nvcc sm_90a, {len(logs)} sources in {secs:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "wgmma" in line:
                 log(f"[build] {name}: {line.strip()}")
     return {"seconds": secs}
 
@@ -161,15 +169,17 @@ def phase_kernels(torch, results: dict) -> None:
         return torch.randint(0, side, shape, generator=gen, device=dev,
                              dtype=torch.int32)
 
+    def composed(tile):
+        return torch.as_tensor(tile_to_width(tile.cpu().numpy()),
+                               dtype=torch.int32, device=dev)
+
     lut4 = codes((16, 16), 226)
-    tile = codes((16, 16), 256)
-    lut8 = torch.as_tensor(tile_to_width(tile.cpu().numpy()), dtype=torch.int32,
-                           device=dev)
+    lut8 = composed(codes((16, 16), 256))
     rows = []
     for name, side, table, kernel in (("approx_matmul_w4", 16, lut4, am.approx_matmul_w4),
                                       ("approx_matmul_w8", 256, lut8, am.approx_matmul_w8)):
         worst = 0
-        for M, K, N in MM_SHAPES + MM_RAGGED:
+        for M, K, N in MM_SHAPES + MM_RAGGED + MM_EDGES:
             a, b = codes((M, K), side), codes((K, N), side)
             got = kernel(a, b, table)
             torch.cuda.synchronize()
@@ -188,13 +198,62 @@ def phase_kernels(torch, results: dict) -> None:
             lib_ms = time_ms(torch, lambda: torch.matmul(xa, xb), iters=20)
             nbytes = 4 * (M * K + K * N + M * N) + 4 * side * side
             bms, by = bound(nbytes, 2.0 * M * K * N, "int8")
+            # the tensor-core form's own floor: 16 u8 products a lookup,
+            # two planes at W8A8
+            planes = 1 if side == 16 else 2
+            floor_ms, _ = bound(nbytes, planes * 16 * 2.0 * M * K * N, "int8")
             rows.append({"name": name, "shape": [M, K, N], "ms": ms,
                          "plain_ms": plain_ms, "library_ms": lib_ms,
-                         "bound_ms": bms, "bound_by": by, "max_abs_err": 0})
+                         "bound_ms": bms, "bound_by": by,
+                         "form_floor_ms": floor_ms, "max_abs_err": 0})
             log(f"[kernels] {name} {M}x{K}x{N}: bit-equal; kernel {ms:.4f} ms, "
                 f"plain {plain_ms:.3f} ms, bf16 matmul {lib_ms:.4f} ms, "
-                f"bound {bms:.4f} ms ({by})")
+                f"bound {bms:.4f} ms ({by}), form floor {floor_ms:.4f} ms")
+        log(f"[kernels] {name}: bit-equal at {len(MM_SHAPES + MM_RAGGED + MM_EDGES)} "
+            f"shapes, tile edges included")
         results["max_err"][name] = worst
+
+    M, K, N = MM_OVERFLOW
+    full = torch.full((16, 16), 255, dtype=torch.int32, device=dev)
+    a = torch.full((M, K), 255, dtype=torch.int32, device=dev)
+    b = torch.full((K, N), 255, dtype=torch.int32, device=dev)
+    got = am.approx_matmul_w8(a, b, composed(full))
+    torch.cuda.synchronize()
+    edge = 255 * 289 * K
+    require(bool((got == edge).all()),
+            f"approx_matmul_w8 {M}x{K}x{N} at the overflow edge: entries "
+            f"{int(got.min())}..{int(got.max())}, expected {edge} (saturated?)")
+    log(f"[kernels] approx_matmul_w8 {M}x{K}x{N}, all codes and tile entries "
+        f"255: every entry {edge}, nothing saturates")
+
+    # entries past a byte take one more pass over K a byte: composed 2-bit
+    # blocks reach 375 (two passes); any int32 W4A4 table (four passes) is
+    # exact modulo 2^32, as the plain version's int32 sum
+    wide = []
+    tile = codes((16, 16), 376)
+    tile[15, 15] = 375
+    anyint = torch.randint(-2**31, 2**31 - 1, (16, 16), generator=gen, device=dev,
+                           dtype=torch.int32)
+    for name, side, table, kernel, passes in (
+            ("approx_matmul_w4", 16, tile, am.approx_matmul_w4, 2),
+            ("approx_matmul_w8", 256, composed(tile), am.approx_matmul_w8, 2),
+            ("approx_matmul_w4", 16, anyint, am.approx_matmul_w4, 4)):
+        for M, K, N in MM_SHAPES + MM_RAGGED[:2]:
+            a, b = codes((M, K), side), codes((K, N), side)
+            got = kernel(a, b, table)
+            torch.cuda.synchronize()
+            diff = int((got.long() - ref.approx_matmul(a, b, table).long()).abs().max())
+            require(diff == 0, f"{name} {M}x{K}x{N}, {passes}-pass table: differs "
+                               f"from the plain version by {diff}")
+            if (M, K, N) not in MM_SHAPES[::2] or passes != 2:
+                continue
+            ms = time_ms(torch, lambda: kernel(a, b, table), iters=20)
+            wide.append({"name": name, "shape": [M, K, N], "passes": passes, "ms": ms})
+            log(f"[kernels] {name} {M}x{K}x{N}, table past a byte ({passes} passes): "
+                f"bit-equal; kernel {ms:.4f} ms")
+        log(f"[kernels] {name}: bit-equal with a {passes}-pass table at "
+            f"{len(MM_SHAPES) + 2} shapes")
+    results["tables_past_a_byte"] = wide
 
     worst = 0.0
     for B, H, Hkv, Lq, Lk, D, dt, window in FLASH_CASES:

@@ -7,10 +7,15 @@ and what bounds it on the H100.  Both take CUDA tensors only: the plain
 version for CPU tensors is :func:`repro_torch.kernels.ref.approx_matmul`,
 chosen by :mod:`repro_torch.kernels.ops`.
 
-The W8A8 kernel consumes the ``(16, 16)`` generator tile of a composed
-``(256, 256)`` table, recovered on the device by :func:`extract_tile`.
-A table that is not composed is outside its contract; callers verify a
-stack once when they adopt it (:func:`check_composed`), not on every call.
+Both kernels run the lookup as a product of u8 operands on the tensor
+cores, one pass over K for each byte of the table's widest entry: a
+``(16, 16)`` table, or the ``(16, 16)`` generator tile of a composed
+``(256, 256)`` table (the W8A8 kernel recovers the tile itself, on the
+device).  Byte tables take one pass, entries up to 65,535 two; the sum
+is exact modulo 2^32 for any int32 table, as the plain version's.  The
+W8A8 kernel gives wrong sums for a table that is not composed; callers
+verify a stack once when they adopt it (:func:`check_tables`), not on
+every call.
 """
 
 from __future__ import annotations
@@ -71,6 +76,28 @@ def check_composed(lut: torch.Tensor) -> None:
             "takes only tile_to_width images (backend='ref' takes any table)")
 
 
+def check_tables(luts: torch.Tensor) -> None:
+    """Raise unless every table in ``luts`` (any leading axes) is in the
+    kernels' contract: side 16, or side 256 composed from a tile, with
+    non-negative entries (the tile's at W8A8), as the products of
+    unsigned codes are.  Entries past 255 are taken, at one more pass
+    over K a byte.  Reads the tables back to the host, so it runs once
+    per adopted stack."""
+    side = luts.shape[-1]
+    if side == 256:
+        check_composed(luts)
+        luts = extract_tile(luts)
+    elif luts.shape[-2:] != (16, 16):
+        raise ValueError(f"expected (..., 16, 16) or (..., 256, 256) tables, "
+                         f"got {tuple(luts.shape)}")
+    lo = int(luts.min())
+    if lo < 0:
+        what = "tile" if side == 256 else "table"
+        raise ValueError(
+            f"{what} entry {lo} is negative; the LUT matmul kernels take "
+            f"tables of non-negative products (backend='ref' takes any table)")
+
+
 def _check_int32(t: torch.Tensor, name: str) -> None:
     if not t.is_cuda or t.dtype != torch.int32 or not t.is_contiguous():
         raise ValueError(
@@ -80,21 +107,22 @@ def _check_int32(t: torch.Tensor, name: str) -> None:
 
 def _launch(name: str, a: torch.Tensor, b: torch.Tensor, table: torch.Tensor,
             bits: int) -> torch.Tensor:
+    spec = get_width(bits)
     _check_int32(a, "a")
     _check_int32(b, "b")
     _check_int32(table, "table")
     if a.ndim != 2 or b.ndim != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"bad operand shapes {tuple(a.shape)} x {tuple(b.shape)}")
-    if table.shape != (16, 16):
-        raise ValueError(f"expected a (16, 16) table or tile, got {tuple(table.shape)}")
+    if table.shape != (spec.side, spec.side):
+        raise ValueError(f"expected a ({spec.side}, {spec.side}) table, got "
+                         f"{tuple(table.shape)}")
     if not (a.device == b.device == table.device):
         raise ValueError("a, b and the table must lie on one device")
     M, K = a.shape
     N = b.shape[1]
-    max_k = get_width(bits).max_k
-    if K > max_k:
+    if K > spec.max_k:
         raise ValueError(f"K = {K} exceeds the overflow-free int32 depth "
-                         f"{max_k} at width {bits}")
+                         f"{spec.max_k} at width {bits}")
     lib = _lib()
     out = torch.empty((M, N), dtype=torch.int32, device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
@@ -118,9 +146,7 @@ def approx_matmul_w8(a: torch.Tensor, b: torch.Tensor,
                      lut: torch.Tensor) -> torch.Tensor:
     """``sum_k LUT8[a[m,k], b[k,n]]`` for codes in [0, 256) and a composed
     (256, 256) int32 table, on the card (through its generator tile)."""
-    if lut.shape != (256, 256):
-        raise ValueError(f"expected a (256, 256) table, got {tuple(lut.shape)}")
-    out = _launch("approx_matmul_w8", a, b, extract_tile(lut).contiguous(), 8)
+    out = _launch("approx_matmul_w8", a, b, lut, 8)
     approx_matmul_w8.launches += 1
     return out
 

@@ -56,7 +56,8 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None,
 
 def check_luts(luts: torch.Tensor, *, backend: Backend = "auto") -> None:
     """Verify once, when a table or stack is adopted, what the kernels
-    take on trust per call: an 8-bit table bound for the kernel must be
-    composed."""
-    if luts.shape[-1] == 256 and use_kernel(luts, backend):
-        _am.check_composed(luts)
+    take on trust per call: a table bound for the kernel holds
+    non-negative entries, an 8-bit one through its tile, and an 8-bit one
+    is composed (:func:`repro_torch.kernels.approx_matmul.check_tables`)."""
+    if use_kernel(luts, backend):
+        _am.check_tables(luts)

@@ -109,8 +109,9 @@ def forward_lm(
     ``batch['tokens']``: (B, S) integer tokens (numpy or tensor).
     ``lut``: optional approximate-multiplier table — one (side, side)
     table shared by every layer, or a per-layer (n_layers, side, side)
-    stack; side = 16 (W4A4) or 256 (W8A8).  A W8A8 table bound for the
-    kernel is checked once per call to be composed.
+    stack; side = 16 (W4A4) or 256 (W8A8).  A table bound for the kernel
+    is checked once per call to hold non-negative entries (a W8A8 one
+    through its tile, and to be composed).
     """
     _check_family(cfg)
     dev = resolve_device(device)

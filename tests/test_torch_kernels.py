@@ -103,6 +103,104 @@ def test_approx_matmul_chunked_gather_sums_the_same(rng, monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# the LUT matmul kernels' tensor-core form (csrc/approx_matmul.cu), in
+# integers on the CPU: one u8 operand one-hot, the other the table's rows
+# ---------------------------------------------------------------------------
+def _onehot(codes, weights):
+    """(..., 16) planes: sum of w * [nibble = i] over (nibble, w) pairs."""
+    i = np.arange(16)
+    return sum(w * (nib[..., None] == i) for nib, w in zip(codes, weights))
+
+
+def _tensor_core_form(a, b, table, bits, one_hot_side):
+    """``sum_k LUT[a, b]`` as u8 products of contraction depth 16 K.
+
+    W4A4 (16x16 ``table``): one side is ``[code = i]``, the other the
+    table's 16 entries at the code.  W8A8 (``table`` the 16x16 tile):
+    the one-hot side weighs the nibbles ``[lo = i] + 16 [hi = i]``, the
+    other side has a plane per nibble, combined with weights 1 and 16.
+    A table wider than a byte is taken a byte plane at a time (its
+    32-bit two's-complement bytes), combined by Horner's rule modulo
+    2^32, as the int32 sum.  ``one_hot_side`` "b" is the kernel's
+    orientation, "a" its mirror.  Returns the sum and every operand."""
+    M, K = a.shape
+    N = b.shape[1]
+    oh, ex = (b.T, a) if one_hot_side == "b" else (a, b.T)   # (rows, K) codes
+    if bits == 8:
+        hot = _onehot((oh & 15, oh >> 4), (1, 16))
+    else:
+        hot = _onehot((oh,), (1,))
+    hot_t = torch.from_numpy(hot.reshape(hot.shape[0], 16 * K).astype(np.int64))
+    word = table.astype(np.int64) & 0xFFFFFFFF
+    n_bytes = max(1, (int(word.max()).bit_length() + 7) // 8)
+    total, operands = 0, [hot]
+    for byte in reversed(range(n_bytes)):
+        tb = (word >> (8 * byte)) & 255
+        rows = tb if one_hot_side == "b" else tb.T           # expanded: T[x, i] or T[i, y]
+        planes = [rows[ex & 15], rows[ex >> 4]] if bits == 8 else [rows[ex]]
+        sums = [torch.from_numpy(p.reshape(p.shape[0], 16 * K).astype(np.int64)) @ hot_t.T
+                for p in planes]
+        total = 256 * total + (sums[0] if len(sums) == 1 else sums[0] + 16 * sums[1])
+        operands += planes
+    total = (total + 2**31) % 2**32 - 2**31                  # the int32 wrap
+    if one_hot_side == "a":
+        total = total.T
+    assert total.shape == (M, N)
+    return total, operands
+
+
+@pytest.mark.parametrize("one_hot_side", ["b", "a"])
+@pytest.mark.parametrize("M,K,N", [(37, 53, 29), (4, 96, 40), (1, 64, 24)])
+@pytest.mark.parametrize("table_kind", ["w4 random", "w4 zeros", "w4 255",
+                                        "w8 random", "w8 255", "w4 375",
+                                        "w8 375", "w4 int32", "w8 int32"])
+def test_tensor_core_form_matches_ref(table_kind, M, K, N, one_hot_side, rng):
+    width, kind = table_kind.split()
+    side = 16 if width == "w4" else 256
+    table = {"random": _codes(rng, (16, 16), 256),
+             "zeros": np.zeros((16, 16), np.int32),
+             "255": np.full((16, 16), 255, np.int32),
+             # two byte planes: composed 2-bit blocks reach 375
+             "375": _codes(rng, (16, 16), 376),
+             # four byte planes, negative entries too: exact modulo 2^32
+             "int32": rng.integers(-2**31, 2**31, size=(16, 16)).astype(np.int32),
+             }[kind]
+    if kind == "375":
+        table[15, 15] = 375
+    lut = table if side == 16 else compose.tile_to_width(table).astype(np.int32)
+    a, b = _codes(rng, (M, K), side), _codes(rng, (K, N), side)
+    a[0, 0], b[0, 0] = side - 1, side - 1     # the top code on both sides
+    got, operands = _tensor_core_form(a, b, table, 4 if side == 16 else 8,
+                                      one_hot_side)
+    for op in operands:
+        assert op.min() >= 0 and op.max() <= 255
+    want = ref.approx_matmul(_t(a), _t(b), _t(lut))
+    assert torch.equal(got, want.long())
+    want_jax = np.asarray(jref.approx_matmul(jnp.asarray(a), jnp.asarray(b),
+                                             jnp.asarray(lut)))
+    assert np.array_equal(got.numpy(), want_jax)
+
+
+def test_tensor_core_form_overflow_edge():
+    """At W8A8's max_k with every code and tile entry 255, each plane's s32
+    sum stays below 2^31 and the shift-add gives 255 * 289 * K exactly."""
+    from repro_torch.precision.widths import get_width
+
+    max_k = get_width(8).max_k
+    assert max_k == 29_140 and 255 * 289 * max_k == 2_147_472_300
+    assert 17 * 255 * max_k < 2**31
+    K = 40
+    a = np.full((2, K), 255, np.int32)
+    b = np.full((K, 3), 255, np.int32)
+    tile = np.full((16, 16), 255, np.int32)
+    got, (hot, lo, hi) = _tensor_core_form(a, b, tile, 8, "b")
+    plane = torch.from_numpy(lo.reshape(2, 16 * K).astype(np.int64)) @ \
+        torch.from_numpy(hot.reshape(3, 16 * K).astype(np.int64)).T
+    assert bool((plane == 17 * 255 * K).all())
+    assert bool((got == 255 * 289 * K).all())
+
+
+# ---------------------------------------------------------------------------
 # W8A8 tile helpers: numpy copies and the kernel wrapper's torch twins
 # ---------------------------------------------------------------------------
 def test_extract_tile_and_is_composed_match_jax(rng):
@@ -128,6 +226,51 @@ def test_torch_tile_twins_and_composition_check(rng):
     st[1, 17, 200] += 1
     with pytest.raises(ValueError, match="not composed"):
         am.check_composed(st)
+
+
+def _table_with(rng, side, entry):
+    tile = _codes(rng, (16, 16), 256)
+    tile[3, 5] = entry
+    return tile if side == 16 else compose.tile_to_width(tile).astype(np.int32)
+
+
+def _ref_equals_oracle(rng, side, lut):
+    a, b = _codes(rng, (5, 9), side), _codes(rng, (9, 4), side)
+    a[0, :], b[:, 0] = 3 if side == 16 else 0x53, 5 if side == 16 else 0x35
+    want = np.asarray(jref.approx_matmul(jnp.asarray(a), jnp.asarray(b),
+                                         jnp.asarray(lut)))
+    assert np.array_equal(ops.approx_matmul(_t(a), _t(b), _t(lut),
+                                            backend="ref").numpy(), want)
+
+
+@pytest.mark.parametrize("bad", [-1, -300])
+@pytest.mark.parametrize("side", [16, 256])
+def test_kernel_route_refuses_negative_tables(bad, side, rng, monkeypatch):
+    """The kernels take tables of non-negative products (tiles at W8A8):
+    check_luts refuses a negative entry on the kernel route, backend='ref'
+    takes it and computes what the JAX oracle does."""
+    lut = _table_with(rng, side, bad)
+    stack = _t(np.stack([lut, lut]))
+    with pytest.raises(ValueError, match="negative"):
+        am.check_tables(stack)
+    monkeypatch.setattr(ops, "use_kernel", lambda x, backend: backend == "auto")
+    with pytest.raises(ValueError, match="negative"):
+        ops.check_luts(stack)
+    ops.check_luts(stack, backend="ref")
+    _ref_equals_oracle(rng, side, lut)
+
+
+@pytest.mark.parametrize("wide", [256, 375, 70_000])
+@pytest.mark.parametrize("side", [16, 256])
+def test_kernel_route_takes_tables_past_a_byte(wide, side, rng, monkeypatch):
+    """Entries past 255 (composed 2-bit blocks reach 375) stay on the
+    kernel route: the kernel adds a pass over K for each further byte."""
+    lut = _table_with(rng, side, wide)
+    stack = _t(np.stack([lut, lut]))
+    am.check_tables(stack)
+    monkeypatch.setattr(ops, "use_kernel", lambda x, backend: backend == "auto")
+    ops.check_luts(stack)
+    _ref_equals_oracle(rng, side, lut)
 
 
 # ---------------------------------------------------------------------------

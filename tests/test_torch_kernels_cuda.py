@@ -1,5 +1,6 @@
 """PyTorch port on a card: the hand-written kernels against their plain
-versions (bit-equal LUT matmuls and template_eval; flash attention within
+versions (bit-equal LUT matmuls, at tile edges, extreme tables, tables
+past a byte and the W8A8 overflow edge, and template_eval; flash attention within
 2e-5 in f32 and 2e-2 in bf16), and the tensor search through the kernel
 against the same search through the plain version.  Imports no JAX, so it runs where only the port is
 installed: ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_kernels_cuda.py``.
@@ -52,6 +53,112 @@ def test_approx_matmul_kernel_on_card(cuda, M, K, N, side, rng):
     assert torch.equal(got.cpu(), ref.approx_matmul(_t(a), _t(b), _t(table)))
     after = (am.approx_matmul_w4.launches, am.approx_matmul_w8.launches)
     assert sum(after) == sum(before) + 1
+
+
+def _table(rng, side, kind="random"):
+    """A W4A4 table, or a W8A8 table composed from a tile: of bytes, or
+    wider ("375", "70000": one entry that large, two and three byte
+    planes; "int32": any int32 entry, four planes)."""
+    if kind == "random":
+        tile = _codes(rng, (16, 16), 256)
+    elif kind in ("375", "70000"):
+        tile = _codes(rng, (16, 16), 376)
+        tile[15, 15] = int(kind)
+    elif kind == "int32":
+        tile = rng.integers(-2**31, 2**31, size=(16, 16)).astype(np.int32)
+    else:
+        tile = np.full((16, 16), {"zeros": 0, "255": 255}[kind], np.int32)
+    return tile if side == 16 else compose.tile_to_width(tile).astype(np.int32)
+
+
+def _check_on_card(cuda, a, b, table):
+    got = ops.approx_matmul(*[_t(x).to(cuda) for x in (a, b, table)])
+    torch.cuda.synchronize()
+    want = ref.approx_matmul(_t(a), _t(b), _t(table))
+    assert torch.equal(got.cpu(), want)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 4, 8, 9, 63, 64, 65, 256, 1024])
+@pytest.mark.parametrize("K,N", [(300, 200),   # K past the 16-deep stage, N past 128
+                                 (53, 129)])   # unaligned rows: 4-byte copies
+@pytest.mark.parametrize("side", [16, 256])
+def test_approx_matmul_kernel_tile_edges(cuda, M, K, N, side, rng):
+    """Row counts on both sides of the 8-, 64- and 128-row activation
+    tiles, depths that end inside a stage, columns that end inside a
+    block."""
+    a, b = _codes(rng, (M, K), side), _codes(rng, (K, N), side)
+    _check_on_card(cuda, a, b, _table(rng, side))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["zeros", "255", "random"])
+@pytest.mark.parametrize("M,K,N", [(4, 2560, 384), (130, 257, 64)])
+@pytest.mark.parametrize("side", [16, 256])
+def test_approx_matmul_kernel_extreme_tables(cuda, kind, M, K, N, side, rng):
+    a, b = _codes(rng, (M, K), side), _codes(rng, (K, N), side)
+    _check_on_card(cuda, a, b, _table(rng, side, kind))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,side", [("375", 16), ("70000", 16), ("int32", 16),
+                                       ("375", 256), ("70000", 256)])
+@pytest.mark.parametrize("M,K,N", [(4, 2560, 384), (130, 257, 64), (257, 300, 129)])
+def test_approx_matmul_kernel_tables_past_a_byte(cuda, kind, side, M, K, N, rng):
+    """Entries past 255 take a pass over K a byte; the sum stays exact
+    (modulo 2^32 for any int32 table, as the plain version's)."""
+    a, b = _codes(rng, (M, K), side), _codes(rng, (K, N), side)
+    _check_on_card(cuda, a, b, _table(rng, side, kind))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [4, 300])
+def test_approx_linear_takes_a_table_past_a_byte(cuda, M, rng):
+    """A 16x16 table holding 375 (as composed 2-bit blocks do) passes
+    check_luts and gives, through the kernel, what the plain path gives."""
+    from repro_torch.quant.int4 import approx_linear
+
+    lut = _t(_table(rng, 16, "375")).to(cuda)
+    ops.check_luts(lut)
+    x = torch.from_numpy(rng.standard_normal((M, 512)).astype(np.float32)).to(cuda)
+    w = torch.from_numpy(rng.standard_normal((512, 640)).astype(np.float32)).to(cuda)
+    before = am.approx_matmul_w4.launches
+    got = approx_linear(x, w, lut)
+    assert am.approx_matmul_w4.launches == before + 1
+    want = approx_linear(x, w, lut, backend="ref")
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N", [(3, 70), (70, 3)])
+def test_approx_matmul_w8_overflow_edge(cuda, M, N):
+    """Every code and tile entry 255 at K = max_k: each entry is
+    255 * 289 * 29,140 = 2,147,472,300, just below 2^31, so no partial
+    sum saturates."""
+    from repro_torch.precision.widths import get_width
+
+    K = get_width(8).max_k
+    a = np.full((M, K), 255, np.int32)
+    b = np.full((K, N), 255, np.int32)
+    got = _check_on_card(cuda, a, b, _table(None, 256, "255"))
+    assert bool((got == 2_147_472_300).all())
+
+
+@pytest.mark.cuda
+def test_approx_matmul_w8_enqueues_only_its_output(cuda, rng):
+    """Per call the W8A8 wrapper allocates its output and launches the
+    kernel on the composed table itself: no PyTorch op recovers the tile."""
+    from torch.profiler import ProfilerActivity, profile
+
+    a, b = (_t(_codes(rng, s, 256)).to(cuda) for s in ((4, 256), (256, 128)))
+    lut = _t(_table(rng, 256)).to(cuda)
+    am.approx_matmul_w8(a, b, lut)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        am.approx_matmul_w8(a, b, lut)
+    ops_run = {e.key for e in prof.key_averages() if e.key.startswith("aten::")}
+    assert ops_run <= {"aten::empty"}, ops_run
 
 
 @pytest.mark.cuda
