@@ -67,16 +67,34 @@ MM_EDGES = ([(M, 300, 200) for M in (1, 4, 8, 9, 63, 64, 65, 256, 1024)]
 # W8A8 at its overflow edge: every code and tile entry 255 at K = max_k
 # gives 255 * 289 * 29,140 = 2,147,472,300 in every entry
 MM_OVERFLOW = (3, 29140, 70)
-# (B, H, Hkv, Lq, Lk, D, dtype, window)
+# (B, H, Hkv, Lq, Lk, D, dtype, window, causal): the main path's prefill
+# shape, a kv prefix, windows, head dims 64 and 256, non-causal, ragged
+# lengths, and Lk < Lq, whose first rows see no key
 FLASH_CASES = [
-    (2, 32, 8, 512, 512, 128, "bfloat16", None),
-    (2, 32, 8, 512, 512, 128, "float32", None),
-    (1, 32, 8, 128, 384, 128, "bfloat16", None),
-    (1, 32, 8, 128, 384, 128, "float32", None),
-    (2, 32, 8, 512, 512, 128, "bfloat16", 128),
-    (2, 32, 8, 512, 512, 128, "float32", 128),
-    (1, 4, 2, 100, 300, 128, "float32", None),
+    (2, 32, 8, 512, 512, 128, "bfloat16", None, True),
+    (2, 32, 8, 512, 512, 128, "float32", None, True),
+    (1, 32, 8, 128, 384, 128, "bfloat16", None, True),
+    (1, 32, 8, 128, 384, 128, "float32", None, True),
+    (2, 32, 8, 512, 512, 128, "bfloat16", 128, True),
+    (2, 32, 8, 512, 512, 128, "float32", 128, True),
+    (2, 32, 8, 512, 512, 128, "bfloat16", 200, True),
+    (1, 4, 2, 100, 300, 128, "float32", None, True),
+    (1, 4, 2, 100, 300, 128, "bfloat16", None, True),
+    (2, 8, 4, 512, 512, 64, "bfloat16", None, True),     # hymba's head dim
+    (2, 8, 4, 512, 512, 64, "float32", None, True),
+    (2, 8, 1, 512, 512, 256, "bfloat16", None, True),    # gemma3's head dim
+    (2, 8, 1, 512, 512, 256, "float32", 200, True),
+    (1, 8, 2, 333, 333, 256, "bfloat16", None, False),   # non-causal, ragged
+    (1, 8, 2, 333, 333, 128, "float32", None, False),
+    (1, 8, 2, 300, 100, 128, "bfloat16", None, True),    # 200 rows see no key
+    (1, 8, 2, 300, 100, 64, "float32", 64, True),
 ]
+# timed, in this order (the main bf16 shape first: the kernels line takes
+# the first row of each kernel)
+FLASH_TIMED = [(2, 32, 8, 512, 512, 128, "bfloat16", None, True),
+               (1, 32, 8, 128, 384, 128, "bfloat16", None, True),
+               (2, 32, 8, 512, 512, 128, "bfloat16", 128, True),
+               (2, 32, 8, 512, 512, 128, "float32", None, True)]
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # template_eval (benchmark, T, P): the cases of
 # tests/test_kernels_template_eval.py and the population at and past the
@@ -123,6 +141,10 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
 def bound(bytes_moved: float, ops: float, peak: str) -> tuple[float, str]:
     t_bytes = bytes_moved / HBM_BPS
     t_ops = ops / PEAK_OPS[peak]
@@ -144,15 +166,40 @@ def phase_build() -> dict:
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "wgmma" in line:
                 log(f"[build] {name}: {line.strip()}")
-    return {"seconds": secs}
+    return {"seconds": secs, "flash_tensor_core_products": flash_sass(_build)}
+
+
+def flash_sass(_build) -> dict:
+    """The tensor-core products each bf16 flash kernel was compiled to,
+    from its SASS: HGMMA with A from shared memory (S = Q K^T) and with A
+    from registers against a transposed B (O += P V).  Both must be there."""
+    import re
+
+    lib = _build.library_path("flash_attention")
+    sass = subprocess.run([str(Path(_build._nvcc()).with_name("cuobjdump")), "-sass",
+                           str(lib)], capture_output=True, text=True, check=True).stdout
+    found = {}
+    for body in sass.split("Function : ")[1:]:
+        head = body.split("\n", 1)[0]
+        dim = re.search(r"flash_bf16_kernelILi(\d+)E", head)
+        if dim is None:
+            continue
+        ops = re.findall(r"(HGMMA\.\w+\.F32\.BF16) R\d+, (gdesc|R\d+)", body)
+        qk = sum(1 for _, a in ops if a == "gdesc")
+        pv = sum(1 for _, a in ops if a != "gdesc")
+        shapes = sorted({op for op, _ in ops})
+        found[int(dim.group(1))] = {"qk": qk, "pv": pv, "ops": shapes}
+        log(f"[build] flash_attention bf16 D={dim.group(1)}: {qk} {'/'.join(shapes)} "
+            f"from shared memory (S = Q K^T), {pv} with P from registers (O += P V)")
+    require(sorted(found) == [64, 128, 256] and all(f["qk"] and f["pv"] for f in found.values()),
+            f"bf16 flash kernels without tensor-core products for both products: {found}")
+    return found
 
 
 # ---------------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 def phase_kernels(torch, results: dict) -> None:
-    import torch.nn.functional as F
-
     from repro_torch.kernels import approx_matmul as am
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
@@ -256,43 +303,104 @@ def phase_kernels(torch, results: dict) -> None:
     results["tables_past_a_byte"] = wide
 
     worst = 0.0
-    for B, H, Hkv, Lq, Lk, D, dt, window in FLASH_CASES:
-        dtype = getattr(torch, dt)
-        q = torch.randn((B, H, Lq, D), generator=gen, device=dev).to(dtype)
-        k = torch.randn((B, Hkv, Lk, D), generator=gen, device=dev).to(dtype)
-        v = torch.randn((B, Hkv, Lk, D), generator=gen, device=dev).to(dtype)
-        got = fa.flash_attention(q, k, v, causal=True, window=window)
+    timed = {}
+    for case in FLASH_CASES:
+        B, H, Hkv, Lq, Lk, D, dt, window, causal = case
+        q, k, v = flash_inputs(torch, gen, case)
+        got = fa.flash_attention(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
-        want = ref.flash_attention(q, k, v, causal=True, window=window)
+        want = ref.flash_attention(q, k, v, causal=causal, window=window)
         err = float((got.float() - want.float()).abs().max())
         worst = max(worst, err)
-        tag = f"({B},{H},{Hkv},{Lq},{Lk},{D}) {dt} window={window}"
+        tag = flash_tag(case)
         require(err < FLASH_TOL[dt], f"flash_attention {tag}: max |err| {err} "
                                      f">= {FLASH_TOL[dt]}")
-        log(f"[kernels] flash_attention {tag}: max |err| {err:.3g}")
-        if (dt, window, Lq) != ("bfloat16", None, 512):
-            continue
-        ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, causal=True), iters=20)
-        plain_ms = time_ms(torch, lambda: ref.flash_attention(q, k, v, causal=True),
-                           iters=5)
-        try:
-            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=True, enable_gqa=True), iters=20)
-        except TypeError:  # a PyTorch without enable_gqa has no one call
-            lib_ms = None
-        # unmasked (query, key) pairs of this causal run, queries aligned
-        # to the end of the keys
-        pairs = sum(min(Lk, i + 1 + Lk - Lq) for i in range(Lq))
-        ops = 4.0 * B * H * D * pairs
-        nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
-        bms, by = bound(nbytes, ops, "bf16")
-        rows.append({"name": "flash_attention", "shape": [B, H, Hkv, Lq, Lk, D],
-                     "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                     "bound_ms": bms, "bound_by": by})
-        log(f"[kernels] flash_attention {tag}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.3f} ms, sdpa {lib_ms} ms, bound {bms:.4f} ms ({by})")
+        blind = Lq - Lk if causal and Lk < Lq else 0  # rows that see no key
+        require(not bool(got[:, :, :blind].any()),
+                f"flash_attention {tag}: a row that sees no key is not 0")
+        log(f"[kernels] flash_attention {tag}: max |err| {err:.3g}"
+            + (f", the {blind} rows that see no key 0" if blind else ""))
+        if case in FLASH_TIMED:
+            timed[case] = flash_timing(torch, fa, ref, q, k, v, case) | {
+                "max_abs_err": err}
+    for case in FLASH_TIMED:
+        row = timed[case]
+        rows.append(row)
+        log(f"[kernels] flash_attention {flash_tag(case)}: kernel {row['ms']:.4f} "
+            f"ms a call ({fmt_ms(row['device_ms'])} alone), plain {row['plain_ms']:.3f} "
+            f"ms, sdpa ({row['library_call']}) {fmt_ms(row['library_ms'])} a call "
+            f"({fmt_ms(row['library_device_ms'])} alone), bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']})")
     results["max_err"]["flash_attention"] = worst
     results["timings"] = rows
+
+
+def flash_tag(case) -> str:
+    B, H, Hkv, Lq, Lk, D, dt, window, causal = case
+    return (f"({B},{H},{Hkv},{Lq},{Lk},{D}) {dt} "
+            f"{'causal' if causal else 'non-causal'} window={window}")
+
+
+def flash_inputs(torch, gen, case):
+    B, H, Hkv, Lq, Lk, D, dt, _, _ = case
+    dtype = getattr(torch, dt)
+    return [torch.randn(s, generator=gen, device="cuda").to(dtype)
+            for s in ((B, H, Lq, D), (B, Hkv, Lk, D), (B, Hkv, Lk, D))]
+
+
+def flash_mask(torch, Lq: int, Lk: int, causal: bool, window):
+    """(Lq, Lk) booleans: the (query, key) pairs a row sees, queries
+    aligned to the end of the keys."""
+    qi = torch.arange(Lq, device="cuda")[:, None] + (Lk - Lq)
+    ki = torch.arange(Lk, device="cuda")[None, :]
+    mask = torch.ones((Lq, Lk), dtype=torch.bool, device="cuda")
+    if causal:
+        mask &= ki <= qi
+    if window is not None:
+        mask &= ki > qi - window
+    return mask
+
+
+def flash_timing(torch, fa, ref, q, k, v, case) -> dict:
+    """Kernel per call (CUDA events) and alone (profiler), the plain
+    version, one SDPA call, and the bound over the pairs the mask leaves.
+    SDPA's ``is_causal`` aligns the mask to the top left, which equals
+    this kernel's end-aligned mask only when Lq == Lk; other shapes give
+    SDPA the kernel's mask as an explicit boolean ``attn_mask``."""
+    import torch.nn.functional as F
+
+    B, H, Hkv, Lq, Lk, D, dt, window, causal = case
+    mask = flash_mask(torch, Lq, Lk, causal, window)
+    if window is None and (Lq == Lk or not causal):
+        how, kw = ("is_causal" if causal else "no mask"), {"is_causal": causal}
+    else:
+        how, kw = "attn_mask", {"attn_mask": mask}
+
+    def kernel():
+        return fa.flash_attention(q, k, v, causal=causal, window=window)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
+
+    ms = time_ms(torch, kernel, iters=20)
+    dev_ms = kernel_device_ms(torch, kernel, "flash")
+    plain_ms = time_ms(torch, lambda: ref.flash_attention(
+        q, k, v, causal=causal, window=window), iters=5)
+    try:
+        lib_ms = time_ms(torch, sdpa, iters=20)
+        lib_dev_ms = kernel_device_ms(torch, sdpa, "", per_call=True)
+    except TypeError:  # a PyTorch without enable_gqa has no one call
+        lib_ms = lib_dev_ms = None
+        how = "none"
+    pairs = int(mask.sum())
+    ops = 4.0 * B * H * D * pairs
+    nbytes = q.element_size() * (2 * q.numel() + 2 * k.numel())
+    bms, by = bound(nbytes, ops, "bf16" if dt == "bfloat16" else "f32")
+    return {"name": "flash_attention", "shape": [B, H, Hkv, Lq, Lk, D],
+            "dtype": dt, "window": window, "causal": causal, "ms": ms,
+            "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library_device_ms": lib_dev_ms, "library_call": how, "bound_ms": bms, "bound_by": by,
+            "pairs": pairs}
 
 
 # ---------------------------------------------------------------------------
@@ -347,11 +455,12 @@ def search_defaults() -> dict:
             if v.default is not inspect.Parameter.empty}
 
 
-def kernel_device_ms(torch, fn, name: str, iters: int = 20):
+def kernel_device_ms(torch, fn, name: str, iters: int = 20, per_call: bool = False):
     """The device time of one launch of the kernel whose name contains
-    ``name``, from ``torch.profiler`` over ``iters`` calls: the kernel
-    alone, without the host's launch gaps that CUDA events around a call
-    include.  None when the profiler records no device time."""
+    ``name`` (with ``per_call``, of all such launches of one call), from
+    ``torch.profiler`` over ``iters`` calls: the kernels alone, without the
+    host's launch gaps that CUDA events around a call include.  None when
+    the profiler records no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -365,7 +474,7 @@ def kernel_device_ms(torch, fn, name: str, iters: int = 20):
     count = sum(e.count for e in rows)
     if not count:
         return None
-    return sum(e.self_device_time_total for e in rows) / 1e3 / count
+    return sum(e.self_device_time_total for e in rows) / 1e3 / (iters if per_call else count)
 
 
 def search_kernel_checks(torch, results: dict) -> None:

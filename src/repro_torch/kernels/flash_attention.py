@@ -25,13 +25,22 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("flash_attention")
     for name in _KERNELS.values():
         fn = getattr(lib, name)
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    lib.flash_attention_head_dim.argtypes = []
-    lib.flash_attention_head_dim.restype = ctypes.c_int
+    lib.flash_attention_head_dims.argtypes = [ctypes.POINTER(ctypes.c_int),
+                                              ctypes.c_int]
+    lib.flash_attention_head_dims.restype = ctypes.c_int
     return lib
+
+
+@functools.cache
+def head_dims() -> tuple[int, ...]:
+    """The head dims the kernels are built for, as the library reports."""
+    buf = (ctypes.c_int * 8)()
+    n = _lib().flash_attention_head_dims(buf, len(buf))
+    return tuple(buf[:n])
 
 
 def flash_attention(
@@ -50,14 +59,15 @@ def flash_attention(
             raise ValueError(f"{name} must be a contiguous 4-D CUDA tensor")
         if t.dtype != q.dtype or t.device != q.device:
             raise ValueError("q, k and v must share one dtype and device")
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:  # for TMA
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     if q.dtype not in _KERNELS:
         raise ValueError(f"dtype {q.dtype} not taken; float32 or bfloat16")
     B, H, Lq, D = q.shape
     _, Hkv, Lk, _ = k.shape
-    lib = _lib()
-    if D != lib.flash_attention_head_dim():
-        raise ValueError(f"head dim {D} not taken; the kernel is built for "
-                         f"{lib.flash_attention_head_dim()}")
+    if D not in head_dims():
+        raise ValueError(f"head dim {D} not taken; the kernels are built for "
+                         f"{head_dims()}")
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"bad kv shapes {tuple(k.shape)}, {tuple(v.shape)} "
                          f"for q {tuple(q.shape)}")
@@ -67,11 +77,12 @@ def flash_attention(
         raise ValueError(f"window must be None or a positive int, got {window!r}")
     scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
     out = torch.empty_like(q)
+    lib = _lib()
     fn = getattr(lib, _KERNELS[q.dtype])
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                B, H, Hkv, Lq, Lk, scale, int(causal),
+                B, H, Hkv, Lq, Lk, D, scale, int(causal),
                 -1 if window is None else window, stream)
     _build.check(lib, rc, _KERNELS[q.dtype])
     flash_attention.launches += 1

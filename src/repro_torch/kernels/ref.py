@@ -132,7 +132,9 @@ def flash_attention(
     Logits, softmax and the weighted sum run in float32 and the result is
     cast to ``q.dtype`` — the kernel's own arithmetic.  (The JAX oracle
     keeps bf16 inputs in bf16; the two agree within the 2e-2 bf16
-    tolerance the reference's kernel tests use.)
+    tolerance the reference's kernel tests use.)  A row that sees no key
+    (causal with Lk < Lq) gives 0, the kernel's guarded zero denominator,
+    where the JAX oracle's softmax of no logits gives NaN.
     """
     B, H, Lq, D = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
@@ -151,5 +153,5 @@ def flash_attention(
     if window is not None:
         mask &= ki > qi - window
     logits = logits.masked_fill(~mask, float("-inf"))
-    probs = torch.softmax(logits, dim=-1)
+    probs = torch.softmax(logits, dim=-1).masked_fill(~mask.any(-1, keepdim=True), 0.0)
     return torch.einsum("bhqk,bhkd->bhqd", probs, vf).to(q.dtype)

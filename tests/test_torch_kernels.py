@@ -281,22 +281,56 @@ FLASH_SHAPES = [
     (2, 4, 2, 64, 64, 32),       # GQA 2:1
     (1, 8, 1, 64, 64, 128),      # MQA
     (1, 2, 2, 64, 192, 64),      # kv prefix (prefill continuation)
+    (1, 2, 1, 128, 128, 256),    # head dim 256 (gemma3)
+    (1, 8, 2, 128, 128, 128),    # the main path's group ratio (qwen3-4b 32/8)
 ]
+
+
+def _flash_inputs(rng, B, H, Hkv, Lq, Lk, D, dtype):
+    """(jax, torch) pairs of q, k, v holding the same values."""
+    arrs = [rng.standard_normal(s).astype(np.float32)
+            for s in ((B, H, Lq, D), (B, Hkv, Lk, D), (B, Hkv, Lk, D))]
+    if dtype == "bfloat16":
+        return [_bf16(a) for a in arrs]
+    return [(jnp.asarray(a), _t(a)) for a in arrs]
 
 
 @pytest.mark.parametrize("B,H,Hkv,Lq,Lk,D", FLASH_SHAPES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_ref_matches_jax(B, H, Hkv, Lq, Lk, D, dtype, rng):
-    arrs = [rng.standard_normal(s).astype(np.float32)
-            for s in ((B, H, Lq, D), (B, Hkv, Lk, D), (B, Hkv, Lk, D))]
-    if dtype == "bfloat16":
-        pairs = [_bf16(a) for a in arrs]
-    else:
-        pairs = [(jnp.asarray(a), _t(a)) for a in arrs]
+    pairs = _flash_inputs(rng, B, H, Hkv, Lq, Lk, D, dtype)
     want = np.asarray(jref.flash_attention(*[p[0] for p in pairs]).astype(jnp.float32))
     got = ref.flash_attention(*[p[1] for p in pairs])
     assert got.dtype == pairs[0][1].dtype
     assert np.abs(got.float().numpy() - want).max() < FLASH_TOL[dtype]
+
+
+@pytest.mark.parametrize("B,H,Hkv,Lq,Lk,D", FLASH_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_ref_matches_pallas_interpret_shapes(B, H, Hkv, Lq, Lk, D, dtype, rng):
+    """64-row blocks, so every shape divides and the kernel walks
+    several kv blocks."""
+    from repro.kernels.flash_attention import flash_attention_pallas
+
+    pairs = _flash_inputs(rng, B, H, Hkv, Lq, Lk, D, dtype)
+    want = np.asarray(flash_attention_pallas(
+        *[p[0] for p in pairs], block_q=64, block_k=64,
+        interpret=True).astype(jnp.float32))
+    got = ref.flash_attention(*[p[1] for p in pairs])
+    assert np.abs(got.float().numpy() - want).max() < FLASH_TOL[dtype]
+
+
+def test_flash_ref_rows_without_a_key_give_zero(rng):
+    """Causal with Lk < Lq: the first Lq - Lk rows see no key and give 0
+    (the kernel's guarded zero denominator); the rest match the oracle."""
+    q = rng.standard_normal((1, 4, 96, 64)).astype(np.float32)
+    k, v = (rng.standard_normal((1, 2, 40, 64)).astype(np.float32)
+            for _ in range(2))
+    got = ref.flash_attention(_t(q), _t(k), _t(v)).numpy()
+    assert not got[:, :, :56].any()
+    want = np.asarray(jref.flash_attention(jnp.asarray(q), jnp.asarray(k),
+                                           jnp.asarray(v)))
+    assert np.abs(got[:, :, 56:] - want[:, :, 56:]).max() < 2e-5
 
 
 @pytest.mark.parametrize("window", [64, 128, 200])

@@ -1,10 +1,12 @@
 """PyTorch port on a card: the hand-written kernels against their plain
 versions (bit-equal LUT matmuls, at tile edges, extreme tables, tables
-past a byte and the W8A8 overflow edge, and template_eval; flash attention within
-2e-5 in f32 and 2e-2 in bf16), and the tensor search through the kernel
-against the same search through the plain version.  Imports no JAX, so it runs where only the port is
-installed: ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_kernels_cuda.py``.
-Skips without a CUDA device."""
+past a byte and the W8A8 overflow edge, and template_eval; flash attention
+within 2e-5 in f32 and 2e-2 in bf16 at head dims 64, 128 and 256, causal
+or not, with windows, kv prefixes, ragged lengths and rows that see no
+key), and the tensor search through the kernel against the same search
+through the plain version.  Imports no JAX, so it runs where only the port
+is installed: ``PYTHONPATH=src python -m pytest -m cuda
+tests/test_torch_kernels_cuda.py``.  Skips without a CUDA device."""
 
 import numpy as np
 import pytest
@@ -14,6 +16,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import arith, engine  # noqa: E402
 from repro_torch.core.circuits import input_truth_tables  # noqa: E402
 from repro_torch.kernels import approx_matmul as am  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import template_eval as te  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.precision import compose  # noqa: E402
@@ -161,22 +164,71 @@ def test_approx_matmul_w8_enqueues_only_its_output(cuda, rng):
     assert ops_run <= {"aten::empty"}, ops_run
 
 
+# (B, H, Hkv, Lq, Lk, D, causal, window)
+FLASH_CASES = [
+    (1, 4, 2, 128, 128, 128, True, None), (1, 4, 2, 128, 128, 128, True, 50),
+    (1, 4, 4, 100, 300, 128, True, None), (1, 4, 4, 100, 300, 128, True, 50),
+    (2, 8, 1, 64, 64, 128, True, None), (2, 8, 1, 64, 64, 128, True, 50),
+    (1, 4, 2, 128, 128, 64, True, None),      # head dims 64 and 256
+    (1, 4, 2, 128, 128, 256, True, None),
+    (1, 4, 2, 200, 200, 128, False, None),    # non-causal, ragged
+    (1, 2, 1, 200, 90, 64, False, 30),        # non-causal with a window
+    (1, 4, 2, 256, 256, 128, True, 64),       # windows
+    (1, 4, 2, 256, 256, 128, True, 128),
+    (1, 4, 2, 256, 256, 128, True, 200),
+    (1, 2, 2, 320, 320, 256, True, 200),
+    (1, 4, 2, 128, 384, 128, True, None),     # kv prefix
+    (1, 2, 1, 77, 131, 256, True, None),      # ragged Lq and Lk
+    (2, 4, 2, 130, 150, 64, True, None),
+    (1, 4, 2, 300, 100, 128, True, None),     # Lk < Lq: 200 rows see no key
+]
+
+
+def _flash_qkv(rng, cuda, dt, B, H, Hkv, Lq, Lk, D):
+    return [_t(rng.standard_normal(s).astype(np.float32)).to(cuda, dt)
+            for s in ((B, H, Lq, D), (B, Hkv, Lk, D), (B, Hkv, Lk, D))]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,H,Hkv,Lq,Lk", [(1, 4, 2, 128, 128), (1, 4, 4, 100, 300),
-                                           (2, 8, 1, 64, 64)])
+@pytest.mark.parametrize("B,H,Hkv,Lq,Lk,D,causal,window", FLASH_CASES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("window", [None, 50])
-def test_flash_kernel_on_card(cuda, B, H, Hkv, Lq, Lk, dtype, window, rng):
+def test_flash_kernel_on_card(cuda, B, H, Hkv, Lq, Lk, D, causal, window, dtype, rng):
     torch.backends.cuda.matmul.allow_tf32 = False
     dt = getattr(torch, dtype)
-    q = _t(rng.standard_normal((B, H, Lq, 128)).astype(np.float32)).to(cuda, dt)
-    k = _t(rng.standard_normal((B, Hkv, Lk, 128)).astype(np.float32)).to(cuda, dt)
-    v = _t(rng.standard_normal((B, Hkv, Lk, 128)).astype(np.float32)).to(cuda, dt)
-    got = ops.flash_attention(q, k, v, window=window)
+    q, k, v = _flash_qkv(rng, cuda, dt, B, H, Hkv, Lq, Lk, D)
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    want = ref.flash_attention(q, k, v, window=window)
+    want = ref.flash_attention(q, k, v, causal=causal, window=window)
     assert got.dtype == dt
     assert float((got.float() - want.float()).abs().max()) < FLASH_TOL[dtype]
+    if causal and Lk < Lq:  # rows that see no key
+        assert not got[:, :, :Lq - Lk].any()
+
+
+@pytest.mark.cuda
+def test_flash_kernel_launches_once_a_call(cuda, rng):
+    q, k, v = _flash_qkv(rng, cuda, torch.bfloat16, 1, 4, 2, 64, 64, 128)
+    before = fa.flash_attention.launches
+    fa.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["head dim 96", "head dim 32", "mixed dtypes",
+                                 "unaligned"])
+def test_flash_kernel_refuses_without_launching(cuda, bad, rng):
+    D = {"head dim 96": 96, "head dim 32": 32}.get(bad, 128)
+    q, k, v = _flash_qkv(rng, cuda, torch.bfloat16, 1, 4, 2, 64, 64, D)
+    if bad == "mixed dtypes":
+        k = k.float()
+    elif bad == "unaligned":
+        q = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda)[1:].view(q.shape)
+    assert fa.head_dims() == (64, 128, 256)
+    before = fa.flash_attention.launches
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, k, v)
+    assert fa.flash_attention.launches == before
 
 
 @pytest.mark.cuda
