@@ -96,13 +96,34 @@ FLASH_TIMED = [(2, 32, 8, 512, 512, 128, "bfloat16", None, True),
                (2, 32, 8, 512, 512, 128, "bfloat16", 128, True),
                (2, 32, 8, 512, 512, 128, "float32", None, True)]
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
-# template_eval (benchmark, T, P): the cases of
+# template_eval (benchmark, or "n<inputs>m<outputs>" for a made-up function
+# on the full truth tables, or "n<inputs>m<outputs>w<words>" on that many
+# random packed words; T, P, literals, selections, exact values): the cases of
 # tests/test_kernels_template_eval.py and the population at and past the
-# Pallas block of 256; the search jobs' own shapes (search_shapes) and one
-# large population for a device time are checked and timed besides
-TE_CASES = [("adder_i4", 4, 16), ("adder_i6", 8, 64), ("mul_i4", 6, 33),
-            ("mul_i6", 10, 128), ("mul_i8", 12, 16), ("adder_i4", 4, 256),
-            ("adder_i4", 4, 257)]
+# Pallas block of 256; the edges of tests/test_torch_kernels_cuda.py's
+# TE_EDGES (W = 32 and 128, S < 32 and words with no lane, P = 1 and 255,
+# literals past 2 and selections past 1, exact values negative, wider than
+# m bits and at the int32 extremes, m = 9, 12 and 31, n = 17, 20, 40 and
+# 133: two, three and nine key words); and mul_i8 at the
+# persistent loop's edges, "wave" being a full wave of full slabs (blocks x
+# slab).  The search jobs' own shapes (search_shapes) and one large
+# population for a device time are checked and timed besides.
+TE_CASES = [
+    *[(b, T, P, "012", "01", "exact") for b, T, P in [
+        ("adder_i4", 4, 16), ("adder_i6", 8, 64), ("mul_i4", 6, 33),
+        ("mul_i6", 10, 128), ("mul_i8", 12, 16), ("adder_i4", 4, 256),
+        ("adder_i4", 4, 257), ("mul_i10", 12, 20), ("adder_i12", 9, 10),
+        ("mul_i8", 16, 1), ("mul_i8", 16, 255), ("mul_i8", 16, "wave-1"),
+        ("mul_i8", 16, "wave"), ("mul_i8", 16, "wave+1"), ("mul_i8", 16, 65537)]],
+    ("n5m5", 6, 30, "012", "01", "S=20"), ("n7m6", 8, 30, "012", "01", "S=50"),
+    ("mul_i6", 10, 64, "odd", "odd", "exact"),
+    ("mul_i4", 8, 64, "012", "01", "negative"), ("mul_i4", 8, 64, "012", "01", "wide"),
+    ("mul_i6", 12, 64, "odd", "01", "extremes"), ("adder_i4", 4, 16, "012", "01", "INT_MIN"),
+    ("n5m31", 8, 24, "012", "01", "extremes"), ("n6m12", 12, 24, "odd", "odd", "negative"),
+    ("n8m9", 10, 24, "012", "01", "wide"),
+    ("n17m5", 6, 12, "012", "01", "exact"), ("n20m6w40", 8, 12, "odd", "01", "negative"),
+    ("n40m7w3", 8, 20, "012", "odd", "S=90"), ("n133m9w2", 6, 9, "odd", "01", "wide"),
+]
 TE_LARGE = ("mul_i8", 16, 65536)
 # the tensor jobs: the smoke sweep's 2-bit multipliers with its tensor
 # options (repro/fleet/plan.py), and the 4-bit multiplier at
@@ -163,10 +184,41 @@ def phase_build() -> dict:
     secs = time.perf_counter() - t0
     log(f"[build] nvcc sm_90a, {len(logs)} sources in {secs:.1f} s")
     for name, text in logs.items():
+        if name == "template_eval":
+            continue  # one line per kernel, by template_eval_ptxas
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "wgmma" in line:
                 log(f"[build] {name}: {line.strip()}")
-    return {"seconds": secs, "flash_tensor_core_products": flash_sass(_build)}
+    return {"seconds": secs, "flash_tensor_core_products": flash_sass(_build),
+            "template_eval_ptxas": template_eval_ptxas(_build)}
+
+
+def template_eval_ptxas(_build) -> dict:
+    """Registers, static shared memory and spills of each template_eval
+    kernel (kMaxM output registers; kGroups input groups of one key word,
+    or 0 where the kernel loops over key words), from ptxas -v; the
+    dynamic shared memory of a launch is in its plan."""
+    import re
+
+    log_text = (_build.BUILD_DIR / "template_eval.log").read_text()
+    found = {}
+    for part in log_text.split("Compiling entry function")[1:]:
+        kind = re.search(r"template_eval_kernelILi(\d+)ELi(\d+)E", part)
+        regs = re.search(r"Used (\d+) registers", part)
+        smem = re.search(r"(\d+) bytes smem", part)
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", part)
+        if not (kind and regs):
+            continue
+        row = {"registers": int(regs.group(1)),
+               "static_smem_bytes": int(smem.group(1)) if smem else 0,
+               "spill_stores": int(spills.group(1)) if spills else 0,
+               "spill_loads": int(spills.group(2)) if spills else 0}
+        found[f"kMaxM={kind.group(1)} kGroups={kind.group(2)}"] = row
+        log(f"[build] template_eval kMaxM={kind.group(1)} kGroups={kind.group(2)}: "
+            f"{row['registers']} registers, {row['static_smem_bytes']} B static shared "
+            f"memory, spills {row['spill_stores']} B stored / {row['spill_loads']} B loaded")
+    require(len(found) == 6, f"ptxas reported {len(found)} of 6 template_eval kernels")
+    return found
 
 
 def flash_sass(_build) -> dict:
@@ -477,35 +529,80 @@ def kernel_device_ms(torch, fn, name: str, iters: int = 20, per_call: bool = Fal
     return sum(e.self_device_time_total for e in rows) / 1e3 / (iters if per_call else count)
 
 
-def search_kernel_checks(torch, results: dict) -> None:
+def te_inputs(torch, gen, case, plan):
+    """lits, sel, packed words (int32) and exact values of one TE_CASES
+    entry on the card, made from ``gen``; ``plan`` resolves a "wave" P."""
     from repro_torch.core.arith import benchmark
     from repro_torch.core.circuits import input_truth_tables
+    from repro_torch.kernels import ref
+
+    name, T, P, lit_kind, sel_kind, ev_kind = case
+    tt = None
+    if name.startswith("n"):
+        n, m, *w = (int(x) for x in name[1:].replace("w", "m").split("m"))
+        if w:  # random words, as int32 with their bits
+            tt = torch.randint(-2**31, 2**31, (n, w[0]), generator=gen, device="cuda",
+                               dtype=torch.int64).to(torch.int32)
+        ev = torch.randint(0, 1 << m, (1 << n if tt is None else 32 * w[0],),
+                           generator=gen, device="cuda")
+    else:
+        exact = benchmark(name)
+        n, m = exact.n_inputs, exact.n_outputs
+        ev = torch.from_numpy(exact.eval_words().astype("int64")).cuda()
+    if isinstance(P, str):
+        full = plan(65536, T, n, m, max(1, (1 << n) // 32), 1 << n)
+        wave = full["blocks"] * full["slab"]
+        P = wave + {"wave-1": -1, "wave": 0, "wave+1": 1}[P]
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device="cuda")
+
+    lits = ints(0, 3, (P, T, n)) if lit_kind == "012" else ints(-3, 7, (P, T, n))
+    sel = ((torch.rand((P, m, T), generator=gen, device="cuda") < 0.4)
+           if sel_kind == "01" else ints(-2, 4, (P, m, T)))
+    if ev_kind == "negative":
+        ev = ints(-300, 300, ev.shape)
+    elif ev_kind == "wide":
+        ev = ints(0, 1 << 20, ev.shape)
+    elif ev_kind == "extremes":
+        pick = torch.tensor([-2**31, 2**31 - 1, 0, -1, 1, 2**30], device="cuda")
+        ev = pick[ints(0, 6, ev.shape)]
+    elif ev_kind == "INT_MIN":
+        ev = torch.full(ev.shape, -2**31, device="cuda")
+    elif ev_kind.startswith("S="):
+        ev = ev[:int(ev_kind[2:])]
+    # the words as int32 with the same bits, converted once, as the search
+    # hands them to both versions
+    if tt is None:
+        tt = ref.word_bits_int32(torch.from_numpy(input_truth_tables(n))).cuda()
+    return (lits.to(torch.int32), sel.to(torch.int32), tt,
+            ev.to(torch.int32).contiguous())
+
+
+def search_kernel_checks(torch, results: dict) -> None:
     from repro_torch.kernels import ref
     from repro_torch.kernels import template_eval as te
 
     gen = torch.Generator(device="cuda").manual_seed(2)
     # largest population first: the kernels line reports the first timed row
-    timed = sorted(search_shapes(), key=lambda c: -c[2]) + [TE_LARGE]
-    for bench, T, P in TE_CASES + timed:
-        exact = benchmark(bench)
-        n, m = exact.n_inputs, exact.n_outputs
-        lits = torch.randint(0, 3, (P, T, n), generator=gen, device="cuda",
-                             dtype=torch.int32)
-        sel = (torch.rand((P, m, T), generator=gen, device="cuda") < 0.4).to(torch.int32)
-        # the words as int32 with the same bits, converted once, as the
-        # search hands them to both versions
-        tt = ref.word_bits_int32(torch.from_numpy(input_truth_tables(n))).cuda()
-        ev = torch.from_numpy(exact.eval_words().astype("int32")).cuda()
+    timed = [(b, T, P, "012", "01", "exact")
+             for b, T, P in sorted(search_shapes(), key=lambda c: -c[2]) + [TE_LARGE]]
+    for case in TE_CASES + timed:
+        lits, sel, tt, ev = te_inputs(torch, gen, case, te.plan)
+        (P, T, n), m = lits.shape, sel.shape[1]
+        tag = (f"template_eval {case[0]} T={T} P={P}"
+               + ("" if case[3:] == ("012", "01", "exact") else f" ({', '.join(case[3:])})"))
         wce, esum = te.template_eval(lits, sel, tt, ev)
         torch.cuda.synchronize()
         w_ref, s_ref = ref.template_eval(lits, sel, tt, ev)
         require(torch.equal(wce, w_ref) and torch.equal(esum, s_ref),
-                f"template_eval {bench} T={T} P={P}: differs from the plain "
-                f"version (wce {int((wce - w_ref).abs().max())}, esum "
-                f"{int((esum - s_ref).abs().max())})")
-        if (bench, T, P) not in timed:
-            log(f"[search] template_eval {bench} T={T} P={P}: bit-equal")
+                f"{tag}: differs from the plain version (wce "
+                f"{int((wce.long() - w_ref.long()).abs().max())}, esum "
+                f"{int((esum.long() - s_ref.long()).abs().max())})")
+        if case not in timed:
+            log(f"[search] {tag}: bit-equal")
             continue
+        plan = te.plan(P, T, n, m, tt.shape[1], ev.shape[0])
         ms = time_ms(torch, lambda: te.template_eval(lits, sel, tt, ev), iters=50)
         dev_ms = kernel_device_ms(torch, lambda: te.template_eval(lits, sel, tt, ev),
                                   "template_eval_kernel")
@@ -513,13 +610,14 @@ def search_kernel_checks(torch, results: dict) -> None:
                            iters=5)
         bms, by = template_eval_bound(lits, sel, tt.shape[1], ev.shape[0])
         results["timings"].append({
-            "name": "template_eval", "shape": [bench, T, P], "ms": ms,
+            "name": "template_eval", "shape": [case[0], T, P], "ms": ms,
             "device_ms": dev_ms, "plain_ms": plain_ms, "library_ms": None,
-            "bound_ms": bms, "bound_by": by, "max_abs_err": 0})
-        log(f"[search] template_eval {bench} T={T} P={P}: bit-equal; call "
-            f"{ms:.4f} ms (CUDA events), kernel alone {dev_ms} ms (profiler), "
-            f"plain {plain_ms:.3f} ms, bound {bms:.6f} ms ({by}), no library "
-            f"call")
+            "bound_ms": bms, "bound_by": by, "max_abs_err": 0, "plan": plan})
+        log(f"[search] {tag}: bit-equal; call {ms:.4f} ms (CUDA events), kernel "
+            f"alone {fmt_ms(dev_ms)} (profiler), plain {plain_ms:.3f} ms, bound "
+            f"{bms:.6f} ms ({by}), no library call; {plan['blocks']} blocks of "
+            f"{plan['slab']}-candidate slabs ({plan['slabs']} slabs), "
+            f"{plan['smem_bytes']} B shared memory a block")
     results["max_err"]["template_eval"] = 0
 
 

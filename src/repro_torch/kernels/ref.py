@@ -77,6 +77,132 @@ def template_eval(
     return err.max(dim=1).values, err.sum(dim=1, dtype=torch.int32)
 
 
+def _popcount32(x: torch.Tensor) -> torch.Tensor:
+    """Set bits of each int64 holding 0 ... 2**32 - 1 (``__popc``)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    return ((x * 0x01010101) & ALL_ONES) >> 24
+
+
+def template_eval_bitsliced(
+    lits: torch.Tensor,        # (P, T, n) int32
+    sel: torch.Tensor,         # (P, m, T) int32
+    in_tt: torch.Tensor,       # (n, W) packed words (words64)
+    exact_vals: torch.Tensor,  # (S,) int32
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`template_eval` computed the way ``csrc/template_eval.cu``
+    computes it, on 32-lane words, so that the kernel's arithmetic is
+    exercised where there is no card (the tests; no path of the port
+    calls it).  Steps, as in the kernel:
+
+    - each product is compressed to a key, one base-3 code per group of
+      four inputs (USE 0, NEG 1, any other literal 2, as IGNORE), four
+      groups to a key word, and the mask of the outputs that select it
+      (any nonzero ``sel``); a product no output selects is never formed;
+    - a table per (word, group) holds the AND of every code's literals,
+      so a product is the AND of one table entry per group: two groups
+      for ``n <= 8``, else four per key word of 16 inputs (groups past
+      ``n`` are all-ones at IGNORE);
+    - the outputs are the value's bit planes for 32 lanes at once; the
+      exact value's planes are subtracted with a borrow ripple over
+      ``max_m + 1`` planes (``max_m`` = 8 or 32, the kernel's register
+      count) in a word whose exact values all lie in [0, 2**max_m), else
+      over 32 planes, which is int32 wraparound as in the reference;
+    - a conditional negate by the sign plane (XOR, then a ripple +1),
+      lanes at or past ``S`` cleared;
+    - the max by a scan from the top plane over the lanes whose |err| is
+      not negative (only INT_MIN is), INT_MIN where there are none; the
+      sum as the popcount of each plane shifted by its weight, mod 2**32.
+    """
+    P, T, n = lits.shape
+    m = sel.shape[1]
+    W = in_tt.shape[1]
+    S = exact_vals.shape[0]
+    dev = lits.device
+    groups = 2 if n <= 8 else 4 * ((n + 15) // 16)
+    max_m = 8 if m <= 8 else 32
+
+    # tables: (W, groups, 81) words, entry = AND of the code's literals
+    code = torch.arange(81, device=dev)
+    digits = [(code // 3 ** q) % 3 for q in range(4)]
+    tt = words64(in_tt)
+    tables = torch.full((W, groups, 81), ALL_ONES, dtype=torch.int64, device=dev)
+    for j in range(n):
+        x = tt[j][:, None]                                   # (W, 1)
+        d = digits[j % 4][None, :]
+        term = torch.where(d == 0, x, torch.where(d == 1, x ^ ALL_ONES, ALL_ONES))
+        tables[:, j // 4] &= term
+
+    # mask compression: keys and the outputs each product feeds
+    digit = torch.where(lits == USE, 0, torch.where(lits == NEG, 1, 2))
+    digit = torch.cat([digit, torch.full((P, T, 4 * groups - n), 2, device=dev,
+                                         dtype=digit.dtype)], dim=2)
+    keys = (digit.reshape(P, T, groups, 4).long()
+            * torch.tensor([1, 3, 9, 27], device=dev)).sum(-1)       # (P, T, groups)
+    feeds = ((sel != 0).long() << torch.arange(m, device=dev)[:, None]).sum(1)  # (P, T)
+
+    prods = torch.full((P, T, W), ALL_ONES, dtype=torch.int64, device=dev)
+    for g in range(groups):
+        prods &= tables[:, g, :].T[keys[:, :, g]]            # (P, T, W)
+    outs = []
+    for o in range(max_m):
+        picked = torch.where((((feeds >> o) & 1) != 0)[..., None], prods, 0)
+        word = torch.zeros((P, W), dtype=torch.int64, device=dev)
+        for t in range(T):
+            word |= picked[:, t]
+        outs.append(word)                                    # (P, W)
+
+    # the exact values' bit planes, 32 lanes a word; lanes past S hold 0
+    ev = exact_vals.to(torch.int64) & ALL_ONES
+    ev = torch.cat([ev, ev.new_zeros(32 * W - S)]).reshape(W, 32)
+    lane = torch.arange(32, device=dev)
+    planes = [(((ev >> b) & 1) << lane).sum(1) for b in range(32)]  # (W,) each
+    left = S - 32 * torch.arange(W, device=dev)
+    valid = torch.where(left >= 32, ALL_ONES,
+                        (1 << left.clamp(0, 31)) - 1)        # (W,)
+    word_max, total = _word_errors(outs, planes, valid, 32)
+    if max_m < 32:
+        # a word whose exact values all lie below 2**max_m needs max_m + 1
+        # planes; the kernel decides so word by word
+        narrow = (ev >> max_m == 0).all(1)[None, :]
+        fast = _word_errors(outs, planes, valid, max_m + 1)
+        word_max = torch.where(narrow, fast[0], word_max)
+        total = torch.where(narrow, fast[1], total)
+    esum = total.sum(1) & ALL_ONES
+    esum = torch.where(esum >= 1 << 31, esum - (1 << 32), esum)
+    return word_max.max(1).values.to(torch.int32), esum.to(torch.int32)
+
+
+def _word_errors(outs: list[torch.Tensor], planes: list[torch.Tensor],
+                 valid: torch.Tensor, n_planes: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per (candidate, word): the max |val - exact| over the valid lanes
+    (INT_MIN where none is valid or every valid |err| is INT_MIN) and their
+    sum mod 2**32, over ``n_planes`` planes of the difference."""
+    diff, borrow = [], torch.zeros_like(outs[0])
+    for b in range(n_planes):
+        v = outs[b] if b < len(outs) else torch.zeros_like(borrow)
+        e = planes[b][None, :]
+        diff.append(v ^ e ^ borrow)
+        borrow = ((v ^ ALL_ONES) & (e | borrow)) | (e & borrow)
+    neg = diff[-1]
+    carry = neg
+    total = torch.zeros_like(borrow)
+    for b in range(n_planes):
+        x = diff[b] ^ neg
+        diff[b] = (x ^ carry) & valid
+        carry = carry & x
+        total += _popcount32(diff[b]) << b
+    lanes = valid & (diff[-1] ^ ALL_ONES)
+    best = torch.zeros_like(borrow)
+    cand = lanes
+    for b in range(n_planes - 2, -1, -1):
+        hit = cand & diff[b]
+        found = hit != 0
+        best |= found.long() << b
+        cand = torch.where(found, hit, cand)
+    return torch.where(lanes != 0, best, -(1 << 31)), total
+
 def approx_matmul(
     a: torch.Tensor,     # (M, K) int32, values in [0, side)
     b: torch.Tensor,     # (K, N) int32, values in [0, side)

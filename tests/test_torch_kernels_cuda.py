@@ -231,27 +231,147 @@ def test_flash_kernel_refuses_without_launching(cuda, bad, rng):
     assert fa.flash_attention.launches == before
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("bench,T,P", [
-    ("adder_i4", 4, 16), ("adder_i6", 8, 64), ("mul_i4", 6, 33),
-    ("mul_i6", 10, 128), ("mul_i8", 12, 16), ("adder_i4", 4, 256),
-    ("adder_i4", 4, 257), ("mul_i8", 16, 4096), ("mul_i4", 8, 512),
-    ("mul_i10", 12, 70),     # m = 10 outputs, W = 32 words
-    ("adder_i12", 9, 45),    # W = 128 words: each thread loops over 4
-])
-def test_template_eval_kernel_on_card(cuda, bench, T, P, rng):
-    exact = arith.benchmark(bench)
-    n, m = exact.n_inputs, exact.n_outputs
-    lits = rng.integers(0, 3, size=(P, T, n)).astype(np.int32)
-    sel = (rng.random((P, m, T)) < 0.4).astype(np.int32)
-    words = ref.word_bits_int32(_t(input_truth_tables(n)))
-    args = [_t(lits), _t(sel), words, _t(exact.eval_words().astype(np.int32))]
+# template_eval edge cases, held on the CPU by test_torch_kernels.py
+# (the bit-sliced model against both plain versions) and here on the card:
+# (benchmark, or "n<inputs>m<outputs>" for a made-up function on the full
+# truth tables, or "n<inputs>m<outputs>w<words>" on that many random
+# packed words, T, P, literals, selections, exact values).  T None is the
+# template's 2m.
+TE_EDGES = [
+    *[(b, None, 40, "012", "01", "exact") for b in arith.BENCHMARKS],
+    ("mul_i10", 12, 20, "012", "01", "exact"),     # m = 10, W = 32 words
+    ("adder_i12", 9, 10, "012", "01", "exact"),    # W = 128: four chunks
+    ("n5m5", 6, 30, "012", "01", "S=20"),          # 20 lanes of one word
+    ("n7m6", 8, 30, "012", "01", "S=50"),          # two of four words empty
+    ("mul_i8", 16, 1, "012", "01", "exact"),
+    ("mul_i8", 16, 255, "012", "01", "exact"),
+    ("mul_i8", 16, 257, "012", "01", "exact"),
+    ("mul_i6", 10, 64, "odd", "odd", "exact"),     # lits past 2, sel past 1
+    ("mul_i4", 8, 64, "012", "01", "negative"),
+    ("mul_i4", 8, 64, "012", "01", "wide"),        # past m bits: 32 planes
+    ("mul_i6", 12, 64, "odd", "01", "extremes"),   # INT_MIN, INT_MAX, ...
+    ("adder_i4", 4, 16, "012", "01", "INT_MIN"),   # |0 - INT_MIN| = INT_MIN
+    ("n5m31", 8, 24, "012", "01", "extremes"),     # m = 31
+    ("n6m12", 12, 24, "odd", "odd", "negative"),
+    ("n8m9", 10, 24, "012", "01", "wide"),         # m = 9: 32 output registers
+    ("n17m5", 6, 12, "012", "01", "exact"),        # two key words, W = 4096
+    ("n20m6w40", 8, 12, "odd", "01", "negative"),  # 16-byte literal reads past 16
+    ("n40m7w3", 8, 20, "012", "odd", "S=90"),      # three key words
+    ("n133m9w2", 6, 9, "odd", "01", "wide"),       # nine key words: a 2-word chunk
+]
+
+
+def te_id(case) -> str:
+    return "-".join(str(x) for x in case)
+
+
+def te_inputs(rng, case):
+    """numpy lits (P, T, n), sel (P, m, T), packed words (n, W) uint32 and
+    exact values (S,) int32 of one TE_EDGES case."""
+    name, T, P, lit_kind, sel_kind, ev_kind = case
+    tt = None
+    if name.startswith("n"):
+        n, m, *w = (int(x) for x in name[1:].replace("w", "m").split("m"))
+        if w:
+            tt = rng.integers(0, 1 << 32, size=(n, w[0]), dtype=np.uint64).astype(np.uint32)
+        ev = rng.integers(0, 1 << m, size=1 << n if tt is None else 32 * w[0])
+    else:
+        exact = arith.benchmark(name)
+        n, m = exact.n_inputs, exact.n_outputs
+        ev = exact.eval_words().astype(np.int64)
+    T = 2 * m if T is None else T
+    lits = (rng.integers(0, 3, size=(P, T, n)) if lit_kind == "012"
+            else rng.integers(-3, 7, size=(P, T, n)))
+    sel = ((rng.random((P, m, T)) < 0.4) if sel_kind == "01"
+           else rng.integers(-2, 4, size=(P, m, T)))
+    if ev_kind == "negative":
+        ev = rng.integers(-300, 300, size=ev.shape)
+    elif ev_kind == "wide":
+        ev = rng.integers(0, 1 << 20, size=ev.shape)
+    elif ev_kind == "extremes":
+        ev = rng.choice(np.array([-2**31, 2**31 - 1, 0, -1, 1, 2**30]), size=ev.shape)
+    elif ev_kind == "INT_MIN":
+        ev = np.full(ev.shape, -2**31)
+    elif ev_kind.startswith("S="):
+        ev = ev[:int(ev_kind[2:])]
+    return (lits.astype(np.int32), sel.astype(np.int32),
+            input_truth_tables(n) if tt is None else tt, ev.astype(np.int32))
+
+
+def _te_on_card(cuda, lits, sel, tt, ev):
+    args = [_t(lits), _t(sel), ref.word_bits_int32(_t(tt)), _t(ev)]
     before = te.template_eval.launches
     wce, esum = ops.template_eval(*[a.to(cuda) for a in args])
     torch.cuda.synchronize()
     assert te.template_eval.launches == before + 1
     want = ref.template_eval(*args)
     assert torch.equal(wce.cpu(), want[0]) and torch.equal(esum.cpu(), want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    *[(b, T, P, "012", "01", "exact") for b, T, P in [
+        ("adder_i4", 4, 16), ("adder_i6", 8, 64), ("mul_i4", 6, 33),
+        ("mul_i6", 10, 128), ("mul_i8", 12, 16), ("adder_i4", 4, 256),
+        ("adder_i4", 4, 257), ("mul_i8", 16, 4096), ("mul_i4", 8, 512),
+        ("mul_i10", 12, 70), ("adder_i12", 9, 45)]],
+    *TE_EDGES], ids=te_id)
+def test_template_eval_kernel_on_card(cuda, case, rng):
+    _te_on_card(cuda, *te_inputs(rng, case))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("where", ["wave-1", "wave", "wave+1", "2wave+17", "65537"])
+def test_template_eval_kernel_at_slab_edges(cuda, where, rng):
+    """mul_i8 populations at the persistent loop's edges: one candidate
+    short of, at and past a full wave of full slabs (blocks x slab), a
+    ragged third pass, and 65,537 (the large population plus one)."""
+    full = te.plan(65536, 16, 8, 8, 8, 256)
+    wave = full["blocks"] * full["slab"]
+    P = {"wave-1": wave - 1, "wave": wave, "wave+1": wave + 1,
+         "2wave+17": 2 * wave + 17, "65537": 65537}[where]
+    _te_on_card(cuda, *te_inputs(rng, ("mul_i8", 16, P, "012", "01", "exact")))
+
+
+@pytest.mark.cuda
+def test_template_eval_kernel_launches_once_a_call(cuda, rng):
+    lits, sel, tt, ev = te_inputs(rng, ("mul_i8", 16, 65537, "012", "01", "exact"))
+    args = [_t(lits).to(cuda), _t(sel).to(cuda),
+            ref.word_bits_int32(_t(tt)).to(cuda), _t(ev).to(cuda)]
+    assert te.plan(65537, 16, 8, 8, 8, 256)["slabs"] > 2 * te.plan(
+        65537, 16, 8, 8, 8, 256)["blocks"]   # each block walks several slabs
+    before = te.template_eval.launches
+    te.template_eval(*args)
+    assert te.template_eval.launches == before + 1
+    wce, esum = te.template_eval(args[0][:0], args[1][:0], args[2], args[3])
+    assert wce.shape == esum.shape == (0,)
+    assert te.template_eval.launches == before + 1   # nothing to launch for P = 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["513 inputs", "32 outputs", "S past the words",
+                                 "sel of another T", "strided lits", "exact on the CPU"])
+def test_template_eval_kernel_refuses_without_launching(cuda, bad, rng):
+    lits, sel, tt, ev = te_inputs(rng, ("mul_i4", 8, 33, "012", "01", "exact"))
+    lits, sel, ev = _t(lits).to(cuda), _t(sel).to(cuda), _t(ev).to(cuda)
+    words = ref.word_bits_int32(_t(tt)).to(cuda)
+    if bad == "513 inputs":
+        lits = torch.zeros((33, 8, 513), dtype=torch.int32, device=cuda)
+        words = torch.zeros((513, 4), dtype=torch.int32, device=cuda)
+    elif bad == "32 outputs":
+        sel = torch.zeros((33, 32, 8), dtype=torch.int32, device=cuda)
+    elif bad == "S past the words":
+        ev = torch.zeros(33, dtype=torch.int32, device=cuda)
+    elif bad == "sel of another T":
+        sel = sel[:, :, :7].contiguous()
+    elif bad == "strided lits":
+        lits = lits.transpose(1, 2).contiguous().transpose(1, 2)
+    else:
+        ev = ev.cpu()
+    before = te.template_eval.launches
+    with pytest.raises(ValueError):
+        te.template_eval(lits, sel, words, ev)
+    assert te.template_eval.launches == before
 
 
 @pytest.mark.cuda
