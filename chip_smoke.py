@@ -17,6 +17,16 @@ failing the run on any mismatch:
    ``load_mul_frontier`` to a 16x16 LUT that full-width qwen3-4b serves at
    W4A4, with tokens and the first position's logits identical to the
    plain LUT matmul's;
+   the QoS read path (``[plans]`` lines): the baseline engines
+   (``get_engine("muscat" | "mecals" | "anneal")``) add their results to
+   that library, and ``muscat_like`` finds the system test's sound,
+   smaller multiplier; a W4A4 ``plan_ladder`` priced by sensitivities
+   measured through ``forward_lm`` serves at two levels through
+   ``ServingEngine(plan=...)`` with a ``swap_plan`` between them that
+   copies into the live stack in place, a W8A8 stack is refused; a W8A8
+   plan and a mixed-width plan that holds both widths serve too; every
+   batch's tokens, and one decode step's logits, equal the plain route's
+   on the same plan;
 4. serve full-width qwen3-4b (random weights from a seed, bf16) at W4A4
    through ``ServingEngine.serve``, then one batch again with the plain LUT
    matmul: the generated tokens must be identical;
@@ -133,6 +143,13 @@ SMOKE_TENSOR = {"population": 512, "generations": 24, "elites": 64, "keep": 4}
 SEARCH_JOBS = [("mul", 2, 1, SMOKE_TENSOR), ("mul", 2, 2, SMOKE_TENSOR),
                ("mul", 4, 28, {}), ("mul", 4, 56, {})]
 SEARCH_BUDGET_S = 600.0
+# the baseline engines' jobs of the fleet's 8-bit sweep (repro/fleet/plan.py):
+# the rewrite engines on the 4-bit multiplier, annealing on the 2-bit one,
+# with its step options; the budget is a safety net the steps always beat
+BASELINE_JOBS = [(name, 4, et) for name in ("muscat", "mecals") for et in (4, 28, 56)] \
+    + [("anneal", 2, 1), ("anneal", 2, 2)]
+ANNEAL_OPTS = {"steps": 6000, "restarts": 3, "keep": 3}
+BASELINE_BUDGET_S = 600.0
 
 
 class SmokeError(RuntimeError):
@@ -809,6 +826,282 @@ def phase_search_serve(torch, cfg, params, library: Path, results: dict) -> None
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: the QoS read path -- baselines, plans, a plan served and swapped
+# ---------------------------------------------------------------------------
+def phase_plans(torch, cfg, params, library: Path, results: dict) -> None:
+    """The library the search filled, densified by the baseline engines,
+    planned over and served at full width: a W4A4 plan ladder priced by
+    measured sensitivities, served at two levels with a hot swap between
+    them; a W8A8 plan; and a mixed-width plan that holds both widths.
+    Every batch's tokens equal the plain route's on the same plan."""
+    import numpy as np
+
+    from repro_torch.core.arith import benchmark
+    from repro_torch.core.baselines import muscat_like
+    from repro_torch.core.engine import SearchJob, get_engine
+    from repro_torch.core.miter import worst_case_error
+    from repro_torch.core.synth import area
+    from repro_torch.library.qos import (measure_sensitivities, plan_ladder,
+                                         select_plan, stack_luts)
+    from repro_torch.library.store import OperatorStore
+    from repro_torch.models import decode_fn, forward_fn, init_caches
+    from repro_torch.models.lm import to_device_luts
+    from repro_torch.precision.plans import (WidthFrontier, build_mixed_ladder,
+                                             choose_mixed_budget, load_frontier,
+                                             load_mixed_frontier, select_width_map,
+                                             stack_mixed_luts)
+    from repro_torch.precision.widths import exact_table, get_width
+    from repro_torch.quant.lut import build_lut, exact_mul_lut
+    from repro_torch.serving import ServingEngine, steady, synth_requests
+
+    out: dict = {"baselines": []}
+    results["plans"] = out
+
+    # 1. the baseline engines' jobs into the library
+    store = OperatorStore(library)
+    for name, bits, et in BASELINE_JOBS:
+        opts = ANNEAL_OPTS if name == "anneal" else {}
+        job = SearchJob("mul", bits, et, name, budget_s=BASELINE_BUDGET_S)
+        t0 = time.perf_counter()
+        res = get_engine(name, **opts).run(job)
+        wall = time.perf_counter() - t0
+        require(res.ok and wall < BASELINE_BUDGET_S, f"{job.describe()}: {res.error}")
+        if name == "anneal":
+            steps = ANNEAL_OPTS["steps"] * ANNEAL_OPTS["restarts"]
+            require(res.stats["steps"] == steps,
+                    f"{job.describe()}: ran {res.stats['steps']} of {steps} steps")
+        for c in res.results:
+            store.put_circuit(c.circuit, job.signature(), area=c.area,
+                              source=name, proxies=c.proxies, params=c.params)
+        best = res.best.area if res.results else None
+        log(f"[plans] {job.describe()}: {len(res.results)} sound result(s) stored, "
+            f"best area {best}, {wall:.3f} s")
+        out["baselines"].append({"job": job.describe(), "results": len(res.results),
+                                 "best_area": best, "wall_s": wall})
+    exact8 = benchmark("mul_i8")
+    t0 = time.perf_counter()
+    fixture = muscat_like(exact8, et=4, restarts=2)
+    lut_err = int(np.abs(build_lut(fixture.circuit) - exact_mul_lut()).max())
+    wce = worst_case_error(exact8, fixture.circuit)
+    require(wce <= 4 and lut_err <= 4 and fixture.area < area(exact8),
+            f"muscat_like(mul_i8, et=4): wce {wce}, LUT error {lut_err}, area "
+            f"{fixture.area} vs exact {area(exact8)}")
+    log(f"[plans] the system test's multiplier, muscat_like(mul_i8, et=4, "
+        f"restarts=2): sound (wce {wce}, 16x16 LUT error {lut_err}), area "
+        f"{fixture.area} < exact {area(exact8)}, {time.perf_counter() - t0:.3f} s")
+    out["system_multiplier"] = {"wce": wce, "lut_err": lut_err,
+                                "area": fixture.area, "exact_area": area(exact8)}
+
+    L = cfg.n_layers
+    reqs = synth_requests(steady(1, 4, prompt_len=16, gen_len=8),
+                          cfg.vocab_size, 5)[0]
+
+    def engine(c, backend="auto", **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng = ServingEngine(c, params, batch=4, prompt_len=16, gen_len=8,
+                            backend=backend, **kw)
+        torch.cuda.synchronize()
+        return eng, time.perf_counter() - t0
+
+    def serve(eng, kernels):
+        """One batch, its kernel launches counted; the tokens and times."""
+        reset_counts()
+        st = eng.run_batch(reqs)
+        counts = read_counts()
+        for k in kernels:
+            require(counts[k] > 0, f"the plan path launched no {k}")
+        return eng.last_tokens.copy(), st, counts
+
+    def plain_tokens(c, **kw):
+        eng, _ = engine(c, backend="ref", **kw)
+        eng.run_batch(reqs)
+        return eng.last_tokens
+
+    first = torch.as_tensor(np.stack([r.tokens[:1] for r in reqs]), device="cuda")
+
+    def step_logits(c, eng, stack, tag: str):
+        """One decode step at position 0 on the engine's live buffers
+        through the kernels, and on the plan's own stack through the plain
+        LUT matmul.  Decode runs no flash, so every other op is the same
+        on both and the logits must be equal bit for bit: equal tokens
+        alone could hide a wrong table behind a degenerate output."""
+        step = decode_fn(c)
+        got = step(c, params, init_caches(c, 4, 1, device="cuda"), first, 0,
+                   luts=eng._luts, width_map=eng._width_map)[0]
+        want = step(c, params, init_caches(c, 4, 1, device="cuda"), first, 0,
+                    luts=to_device_luts(stack, torch.device("cuda")),
+                    width_map=eng._width_map, backend="ref")[0]
+        require(torch.equal(got, want), f"{tag}: position-0 decode "
+                f"logits differ from the plain route's on the plan's stack")
+        return got
+
+    # 2. the W4A4 ladder, priced by measured sensitivities
+    cfg4 = cfg.with_approx_mlp(4)
+    fr4 = WidthFrontier.load(library, 4)
+    _, probe = max(fr4.compiled, key=lambda rc: rc[1].mae)
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, 256), generator=gen,
+                                     device="cuda")}
+    fwd = forward_fn(cfg4)
+    exact4 = exact_table("mul", 4).astype(np.int32)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    base = fwd(cfg4, params, batch, lut=np.stack([exact4] * L))[0]
+
+    def eval_drift(per_layer) -> float:
+        stack = np.stack([exact4 if t is None else t for t in per_layer])
+        return float((fwd(cfg4, params, batch, lut=stack)[0] - base).abs().mean())
+
+    sens = measure_sensitivities(eval_drift, L, probe)
+    torch.cuda.synchronize()
+    sens_s = time.perf_counter() - t0
+    counts = read_counts()
+    require(counts["flash_attention"] == (L + 1) * L
+            and counts["approx_matmul_w4"] == 3 * (L + 1) * L,
+            f"sensitivity pass launches {counts}, expected {L + 1} forwards")
+    log(f"[plans] measured sensitivities, B=1 S=256, probe mae16 "
+        f"{probe.mae:.3f}: {L + 1} forwards in {sens_s:.2f} s (flash launches "
+        f"{counts['flash_attention']}, approx_matmul_w4 {counts['approx_matmul_w4']}); "
+        f"per-layer drift per unit mae16 {sens.min():.4g}..{sens.max():.4g}")
+    ladder = plan_ladder(fr4.compiled, sens, exact_area=fr4.exact_area, levels=6)
+    require(len(ladder) > 4, f"W4A4 ladder of {len(ladder)} levels, need 5")
+    out.update(sensitivity_s=sens_s, sensitivities=sens.tolist(),
+               ladder=[{"plan_id": p.plan_id, "area_saving": p.area_saving,
+                        "budget": p.budget} for p in ladder])
+    log("[plans] W4A4 ladder: " + ", ".join(
+        f"{p.plan_id} saves {100 * p.area_saving:.1f}%" for p in ladder))
+
+    eng, build_s = engine(cfg4, plan=ladder[1], compiled=fr4.compiled,
+                          exact_area=fr4.exact_area, sensitivities=sens)
+    live, ptr = eng._luts, eng._luts.data_ptr()
+    levels, logits = [], {}
+    for level in (1, 4):
+        if level == 4:
+            stack = stack_luts(ladder[4], fr4.compiled)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            changed = eng.swap_plan(ladder[4], stack, reason="smoke", batch_idx=1)
+            torch.cuda.synchronize()
+            swap_ms = 1e3 * (time.perf_counter() - t0)
+            require(changed, "swap_plan to ladder level 4 returned False")
+            require(eng._luts is live and live.data_ptr() == ptr,
+                    "swap_plan moved the live stack")
+            require(eng.swap_plan(ladder[4], stack) is False,
+                    "a swap to the live plan returned True")
+            log(f"[plans] swap_plan level 1 -> 4: True in {swap_ms:.3f} ms "
+                f"(host clock, synchronised), live stack at the same address "
+                f"{ptr:#x}; the same plan again: False")
+            out["swap_ms"] = swap_ms
+        tokens, st, counts = serve(eng, ["approx_matmul_w4"])
+        same = bool((plain_tokens(cfg4, plan=ladder[level],
+                                  compiled=fr4.compiled) == tokens).all())
+        require(same, f"W4A4 level {level}: tokens differ from the plain route")
+        logits[level] = step_logits(cfg4, eng, stack_luts(ladder[level], fr4.compiled),
+                                    tag=f"W4A4 level {level}")
+        log(f"[plans] W4A4 level {level} ({ladder[level].plan_id}, saves "
+            f"{100 * ladder[level].area_saving:.1f}%): approx_matmul_w4 launches "
+            f"{counts['approx_matmul_w4']}, {st.ms_per_step:.2f} ms/step, batch "
+            f"{st.prefill_s + st.decode_s:.2f} s; tokens identical to the plain "
+            f"route: {tokens[0].tolist()}; position-0 logits bit-equal")
+        levels.append({"level": level, "plan_id": ladder[level].plan_id,
+                       "area_saving": ladder[level].area_saving,
+                       "ms_per_step": st.ms_per_step,
+                       "batch_s": st.prefill_s + st.decode_s,
+                       "launches": counts["approx_matmul_w4"]})
+    d_levels = float((logits[1] - logits[4]).abs().max())
+    require(d_levels > 0, "levels 1 and 4 serve the same position-0 logits")
+    log(f"[plans] position-0 logits, level 1 against level 4: max |d| {d_levels:.4g}")
+    out.update(w4_engine_s=build_s, w4_levels=levels, level_logits_max_abs_d=d_levels)
+
+    # a W8A8 stack is refused and changes nothing
+    compiled8, exact_area8, _ = load_frontier(library, 8)
+    w8_stack = stack_luts(select_plan(compiled8, np.ones(L), 0.0,
+                                      exact_area=exact_area8), compiled8)
+    try:
+        eng.swap_plan(ladder[2], w8_stack)
+        refused = False
+    except ValueError as e:
+        refused = True
+        log(f"[plans] a W8A8 stack handed to swap_plan: ValueError ({str(e)[:80]}...)")
+    require(refused, "swap_plan took a W8A8 stack into a W4A4 serve")
+    again, _, _ = serve(eng, ["approx_matmul_w4"])
+    require(bool((again == tokens).all()) and eng.plan is ladder[4],
+            "a refused swap changed the served tokens or the plan")
+    log("[plans] after the refused swap: the same plan, the same tokens")
+
+    # 3. a W8A8 plan
+    cfg8 = cfg.with_approx_mlp(8)
+    budget8 = plan_ladder(compiled8, np.ones(L), exact_area=exact_area8,
+                          levels=3)[1].budget
+    plan8 = select_plan(compiled8, np.ones(L), budget8, exact_area=exact_area8)
+    eng8, build8_s = engine(cfg8, plan=plan8, compiled=compiled8,
+                            exact_area=exact_area8)
+    tokens8, st8, counts8 = serve(eng8, ["approx_matmul_w8"])
+    require(bool((plain_tokens(cfg8, plan=plan8, compiled=compiled8) == tokens8).all()),
+            "W8A8 plan: tokens differ from the plain route")
+    step_logits(cfg8, eng8, stack_luts(plan8, compiled8), tag="W8A8 plan")
+    log(f"[plans] W8A8 plan {plan8.plan_id} (frontier of {len(compiled8)}, budget "
+        f"{budget8:.4g}, saves {100 * plan8.area_saving:.1f}%): engine built in "
+        f"{build8_s:.2f} s, approx_matmul_w8 launches {counts8['approx_matmul_w8']}, "
+        f"{st8.ms_per_step:.2f} ms/step; tokens identical to the plain route: "
+        f"{tokens8[0].tolist()}; position-0 logits bit-equal")
+    out["w8"] = {"plan_id": plan8.plan_id, "area_saving": plan8.area_saving,
+                 "budget": budget8, "engine_s": build8_s,
+                 "ms_per_step": st8.ms_per_step,
+                 "launches": counts8["approx_matmul_w8"]}
+    del eng8
+
+    # 4. a mixed-width plan.  Sensitivities are the same for every layer;
+    # per unit of table error they scale, from one width to the next, by
+    # the square of the ratio of the two widths' quantization steps
+    mixed = load_mixed_frontier(library)
+    sens_mixed = {b: np.full(L, (get_width(4).qmax / get_width(b).qmax) ** 2)
+                  for b in mixed.widths}
+    budget = choose_mixed_budget(mixed, sens_mixed, L)
+    width_map, plan_m = select_width_map(mixed, sens_mixed, budget, L)
+    groups = {b: width_map.count(b) for b in sorted(set(width_map))}
+    log(f"[plans] mixed width: budget {budget:.6g}, layers per width {groups}, "
+        f"plan {plan_m.plan_id} saves {100 * plan_m.area_saving:.1f}%")
+    require(len(groups) == 2, f"the mixed width map holds one width: {groups}")
+    stacks = stack_mixed_luts(plan_m, mixed.compiled, width_map)
+    engm, buildm_s = engine(cfg4, plan=plan_m, compiled=mixed.compiled,
+                            sensitivities=sens_mixed, width_map=width_map)
+    tokens_m, st_m, counts_m = serve(engm, ["approx_matmul_w4", "approx_matmul_w8"])
+    require(all(np.array_equal(engm._luts[b].cpu().numpy(), a)
+                for b, a in stacks.items()), "the mixed engine's stacks differ")
+    plain_m = plain_tokens(cfg4, plan=plan_m, compiled=mixed.compiled,
+                           width_map=width_map)
+    require(bool((plain_m == tokens_m).all()),
+            "mixed-width plan: tokens differ from the plain route")
+    step_logits(cfg4, engm, stacks, tag="mixed plan")
+    log(f"[plans] mixed plan served: engine built in {buildm_s:.2f} s, launches "
+        f"approx_matmul_w4 {counts_m['approx_matmul_w4']}, approx_matmul_w8 "
+        f"{counts_m['approx_matmul_w8']}, {st_m.ms_per_step:.2f} ms/step; tokens "
+        f"identical to the plain route: {tokens_m[0].tolist()}; position-0 "
+        f"logits bit-equal")
+    mladder = build_mixed_ladder(mixed, width_map, sens_mixed, levels=4)
+    target = next(p for p in reversed(mladder.plans) if p.plan_id != plan_m.plan_id)
+    live_m = {b: (t, t.data_ptr()) for b, t in engm._luts.items()}
+    require(engm.swap_plan(target, stack_mixed_luts(target, mixed.compiled, width_map)),
+            "a swap inside the width map returned False")
+    want = stack_mixed_luts(target, mixed.compiled, width_map)
+    require(all(engm._luts[b] is t and t.data_ptr() == p
+                and np.array_equal(t.cpu().numpy(), want[b])
+                for b, (t, p) in live_m.items()),
+            "a swap inside the width map did not copy into both buffers in place")
+    log(f"[plans] swap inside the width map to {target.plan_id}: both buffers "
+        f"copied in place ({', '.join(f'{b}-bit at {p:#x}' for b, (_, p) in live_m.items())})")
+    out["mixed"] = {"budget": budget, "layers_per_width": groups,
+                    "plan_id": plan_m.plan_id, "area_saving": plan_m.area_saving,
+                    "engine_s": buildm_s, "ms_per_step": st_m.ms_per_step,
+                    "launches": {k: counts_m[k] for k in ("approx_matmul_w4",
+                                                          "approx_matmul_w8")},
+                    "swapped_to": target.plan_id}
+
+
+# ---------------------------------------------------------------------------
 # phases 4-6: the main paths at full width
 # ---------------------------------------------------------------------------
 def reset_counts() -> None:
@@ -1062,6 +1355,7 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
     phase_search_serve(torch, cfg, params, library, results)
+    phase_plans(torch, cfg, params, library, results)
     phase_serve(torch, cfg, params, results)
     phase_forward(torch, cfg, params, results)
 

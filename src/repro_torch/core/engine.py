@@ -1,7 +1,7 @@
 """The search-engine API the port runs: jobs, candidates, outcomes, the
-shared harvest, and the tensor engine.
+shared harvest, and the engines that need no SMT solver.
 
-Own copy of ``repro.core.engine``, trimmed to the tensor path:
+Own copy of ``repro.core.engine``:
 
 * :class:`SearchJob` -- what to search, content-hashable
   (:meth:`SearchJob.key`, the same key as the JAX package's);
@@ -10,24 +10,31 @@ Own copy of ``repro.core.engine``, trimmed to the tensor path:
 * :func:`harvest` -- instantiate -> synthesize -> exhaustive re-verify; an
   unsound model raises :class:`UnsoundResultError`;
 * :func:`get_engine` -- ``"tensor"`` gives :class:`TensorEngine`, the
-  population search on the ``template_eval`` kernel.  The other engines
-  of the registry (the SMT engines ``shared``/``xpat``, ``anneal``,
-  ``muscat``/``mecals``) are not ported yet and raise
-  :class:`NotImplementedError`; ROADMAP.md §1 queues them.
+  population search on the ``template_eval`` kernel; ``"anneal"``
+  :class:`AnnealEngine` and ``"muscat"``/``"mecals"``
+  :class:`RewriteEngine`, host numpy as in the reference.  The SMT
+  engines ``shared``/``xpat`` need z3 and raise
+  :class:`NotImplementedError` (ROADMAP.md, "Not queued, on purpose"), so
+  :func:`available_engines` gives what the reference gives without z3.
+
+The reference wraps every engine in ``InstrumentedEngine`` (metrics and
+trace spans); the port returns the engine itself.
 """
 
 from __future__ import annotations
 
 import hashlib
+import math
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
 
 from .arith import benchmark as _benchmark
 from .circuits import Circuit
-from .miter import ERROR_METRICS, measure_error
+from .miter import ERROR_METRICS, ErrorStats, measure_error, values_from_tables
 from .synth import area, synthesize
-from .templates import TemplateParams
+from .templates import IGNORE, SharedTemplate, TemplateParams
 
 __all__ = [
     "SearchJob",
@@ -37,6 +44,8 @@ __all__ = [
     "harvest",
     "verify_circuit",
     "TensorEngine",
+    "AnnealEngine",
+    "RewriteEngine",
     "get_engine",
     "available_engines",
     "ENGINE_NAMES",
@@ -195,30 +204,163 @@ class TensorEngine:
                              wall_budget_s=job.budget_s, **self.search_kw)
 
 
+class AnnealEngine:
+    """Simulated annealing over shared-template parameters (host numpy).
+
+    An accept-if-better loop with a temperature schedule and restarts:
+    propose one literal/selector mutation, score by the same proxy-area
+    energy the tensor search uses (unsound candidates ranked by
+    violation), accept per Metropolis.  Needs no z3 and no device.
+    """
+
+    name = "anneal"
+
+    def __init__(self, *, steps: int = 4000, restarts: int = 3,
+                 start_temp: float = 6.0, cooling: float = 0.999,
+                 keep: int = 8, pit: int | None = None):
+        self.steps = steps
+        self.restarts = restarts
+        self.start_temp = start_temp
+        self.cooling = cooling
+        self.keep = keep
+        self.pit = pit
+
+    def _energy(self, tpl: SharedTemplate, p: TemplateParams,
+                exact_vals: np.ndarray, et: float, metric: str
+                ) -> tuple[float, float]:
+        """Energy + the candidate's error under the job's chosen metric
+        — the one engine that *scores* mae/mse natively instead of
+        bounding them through wce."""
+        vals = values_from_tables(tpl.eval_outputs(p), tpl.n_inputs)
+        err = np.abs(vals.astype(np.int64) - exact_vals)
+        stats = ErrorStats(wce=int(err.max()), mae=float(err.mean()),
+                           mse=float((err.astype(np.float64) ** 2).mean()))
+        val = stats.value(metric)
+        if val > et:
+            return 1e6 + 100.0 * val + float(err.sum()) / err.size, val
+        used = p.sel.any(axis=0)
+        lit_cnt = int(((p.lits != IGNORE) & used[:, None]).sum())
+        prox = tpl.proxies(p)
+        return 10.0 * prox["PIT"] + 2.0 * lit_cnt + 3.0 * prox["ITS"], val
+
+    def run(self, job: SearchJob) -> SearchOutcome:
+        exact = job.exact()
+        n, m = exact.n_inputs, exact.n_outputs
+        T = self.pit if self.pit is not None else 2 * m
+        tpl = SharedTemplate(n, m, pit=T)
+        exact_vals = exact.eval_words().astype(np.int64)
+        rng = np.random.default_rng(job.seed)
+        t0 = time.time()
+        outcome = SearchOutcome(engine=self.name, benchmark=exact.name,
+                                et=job.et, stats={"steps": 0, "accepted": 0,
+                                                  "restarts": 0})
+        # distinct sound assignments seen, fingerprint -> (energy, params)
+        pool: dict[bytes, tuple[float, TemplateParams]] = {}
+
+        def propose(p: TemplateParams) -> TemplateParams:
+            q = p.copy()
+            slot = int(rng.integers(T * n + m * T))
+            if slot < T * n:
+                q.lits[slot // n, slot % n] = rng.integers(0, 3)
+            else:
+                slot -= T * n
+                q.sel[slot // T, slot % T] ^= True
+            return q
+
+        for _ in range(self.restarts):
+            if time.time() - t0 > job.budget_s:
+                break
+            outcome.stats["restarts"] += 1
+            u = rng.random((T, n))
+            p = TemplateParams(
+                np.select([u < 0.25, u < 0.5], [0, 1], default=IGNORE).astype(np.int8),
+                rng.random((m, T)) < 0.3,
+            )
+            e, val = self._energy(tpl, p, exact_vals, job.et,
+                                  job.error_metric)
+            temp = self.start_temp
+            for _step in range(self.steps):
+                if time.time() - t0 > job.budget_s:
+                    break
+                q = propose(p)
+                e2, val2 = self._energy(tpl, q, exact_vals, job.et,
+                                        job.error_metric)
+                outcome.stats["steps"] += 1
+                if e2 <= e or rng.random() < math.exp(-(e2 - e) / max(temp, 1e-9)):
+                    p, e, val = q, e2, val2
+                    outcome.stats["accepted"] += 1
+                    if val <= job.et:
+                        fp = p.lits.tobytes() + p.sel.tobytes()
+                        if fp not in pool:
+                            pool[fp] = (e, p.copy())
+                            if len(pool) > 4 * self.keep:  # bound memory
+                                for k in sorted(pool, key=lambda k: pool[k][0])[self.keep:]:
+                                    del pool[k]
+                temp *= self.cooling
+
+        for _e, p in sorted(pool.values(), key=lambda ep: ep[0])[: self.keep]:
+            outcome.results.append(
+                harvest(tpl, p, exact_vals, job.et, engine=self.name,
+                        metric=job.error_metric,
+                        name=f"{exact.name}_anneal", wall_s=time.time() - t0)
+            )
+        outcome.wall_s = time.time() - t0
+        return outcome
+
+
+class RewriteEngine:
+    """Wraps the circuit-rewrite baselines (MUSCAT- / MECALS-like) as
+    engines: single-candidate outcomes, re-verified like everything else."""
+
+    def __init__(self, name: str):
+        if name not in ("muscat", "mecals"):
+            raise ValueError(f"unknown rewrite engine {name!r}")
+        self.name = name
+
+    def run(self, job: SearchJob) -> SearchOutcome:
+        from .baselines import mecals_like, muscat_like
+
+        fn = muscat_like if self.name == "muscat" else mecals_like
+        _check_metric(job, self.name, ("wce", "mae"))
+        exact = job.exact()
+        t0 = time.time()
+        res = fn(exact, et=job.et, seed=job.seed, wall_budget_s=job.budget_s)
+        outcome = SearchOutcome(engine=self.name, benchmark=exact.name,
+                                et=job.et)
+        verify_circuit(res.circuit, exact.eval_words(), job.et,
+                       metric=job.error_metric, context=f"engine={self.name}")
+        outcome.results.append(
+            Candidate(circuit=res.circuit, area=res.area, wall_s=res.wall_s)
+        )
+        outcome.wall_s = time.time() - t0
+        return outcome
+
+
 ENGINE_NAMES = ("shared", "xpat", "tensor", "anneal", "muscat", "mecals")
 
-# where ROADMAP.md queues each engine the port does not run yet
-_NOT_PORTED = {
-    "shared": "§1 item 8c (the SMT engines and MiterZ3; needs z3)",
-    "xpat": "§1 item 8c (the SMT engines and MiterZ3; needs z3)",
-    "anneal": "§1 item 8b (the CPU engines of core/baselines)",
-    "muscat": "§1 item 8b (the CPU engines of core/baselines)",
-    "mecals": "§1 item 8b (the CPU engines of core/baselines)",
-}
+# the SMT engines need z3, which the port's machines do not have
+_NEEDS_Z3 = ("shared", "xpat")
 
 
-def get_engine(name: str, **opts) -> TensorEngine:
+def get_engine(name: str, **opts):
     """Engine instance by registry name; ``opts`` are engine-specific
-    constructor knobs (``population=``, ``device=``, ``backend=``, ...)."""
+    constructor knobs (``population=``, ``device=``, ``backend=`` for
+    tensor, ``steps=`` for anneal; the rewrite engines take none)."""
     if name == "tensor":
         return TensorEngine(**opts)
-    if name in _NOT_PORTED:
+    if name == "anneal":
+        return AnnealEngine(**opts)
+    if name in ("muscat", "mecals"):
+        if opts:
+            raise TypeError(f"{name} engine takes no options, got {opts}")
+        return RewriteEngine(name)
+    if name in _NEEDS_Z3:
         raise NotImplementedError(
-            f"engine {name!r} is not ported to PyTorch yet; ROADMAP.md "
-            f"{_NOT_PORTED[name]}")
+            f"engine {name!r} is not ported to PyTorch: the SMT engines need "
+            f"z3; ROADMAP.md, \"Not queued, on purpose\"")
     raise KeyError(f"unknown engine {name!r}; known: {ENGINE_NAMES}")
 
 
 def available_engines() -> tuple[str, ...]:
-    """Engines the port runs."""
-    return ("tensor",)
+    """Engines the port runs: the reference's registry without z3."""
+    return tuple(n for n in ENGINE_NAMES if n not in _NEEDS_Z3)

@@ -33,6 +33,9 @@ class TemplateParams:
     lits: np.ndarray  # int8, {USE, NEG, IGNORE}
     sel: np.ndarray   # bool
 
+    def copy(self) -> "TemplateParams":
+        return TemplateParams(self.lits.copy(), self.sel.copy())
+
 
 class SharedTemplate:
     """The paper's shared template: one global product pool (Eq. 2)."""

@@ -87,6 +87,11 @@ class ParetoFrontier:
             out = [r for r in out if r.area <= max_area]
         return out
 
+    def best_under_error(self, max_error: float) -> OperatorRecord | None:
+        """Smallest-area operator whose measured wce fits the bound."""
+        fits = self.query(max_error=max_error)
+        return fits[0] if fits else None
+
     def most_accurate(self) -> OperatorRecord | None:
         return min(self.front, key=lambda r: (r.wce, r.area)) if self.front else None
 

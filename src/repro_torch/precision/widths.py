@@ -47,6 +47,10 @@ class WidthSpec:
         bound = 255 if self.bits <= NATIVE_BLOCK_BITS else 255 * 289
         return (2**31 - 1) // bound
 
+    def stack_shape(self, n_layers: int) -> tuple[int, int, int]:
+        """Shape of a per-layer LUT stack at this width."""
+        return (n_layers, self.side, self.side)
+
     @property
     def benchmark_name(self) -> str:
         """The exact reference circuit of this width's multiplier."""
@@ -99,3 +103,7 @@ def exact_table(op_kind: str, bits: int) -> np.ndarray:
     if op_kind == "adder":
         return a[:, None] + a[None, :]
     raise ValueError(f"unknown op_kind {op_kind!r}")
+
+
+def stack_shape(bits: int, n_layers: int) -> tuple[int, int, int]:
+    return get_width(bits).stack_shape(n_layers)

@@ -1,5 +1,6 @@
-"""PyTorch port: reduced qwen3-4b against the JAX reference on the same
-weights (converted with ``repro_torch.convert.params_from_jax``).
+"""PyTorch port: reduced qwen3-4b and stablelm-1.6b against the JAX
+reference on the same weights (converted with
+``repro_torch.convert.params_from_jax``).
 
 Forward logits and a decode sequence are compared for ``lut=None``, the
 exact (L,16,16) stack, a truncated stack and a composed W8A8 stack,
@@ -40,9 +41,9 @@ def _stack(kind):
     return np.stack(layers).astype(np.int32)
 
 
-def _setup(dtype, kind):
-    cj = dataclasses.replace(jax_config("qwen3-4b", reduced=True), dtype=dtype)
-    ct = dataclasses.replace(get_config("qwen3-4b", reduced=True), dtype=dtype)
+def _setup(dtype, kind, arch="qwen3-4b"):
+    cj = dataclasses.replace(jax_config(arch, reduced=True), dtype=dtype)
+    ct = dataclasses.replace(get_config(arch, reduced=True), dtype=dtype)
     lut = None
     if kind is not None:
         bits = 8 if kind == "w8" else 4
@@ -80,10 +81,18 @@ def _jax_fns(cj, params, jlut, dtype):
     return _jit(fwd, dtype), _jit(step, dtype)
 
 
-@pytest.mark.parametrize("kind", [None, "exact", "trunc", "w8"])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_forward_and_decode_match_jax(dtype, kind):
-    cj, ct, params, pt, tokens, lut = _setup(dtype, kind)
+# qwen3-4b (GQA, qk-norm) keeps its case ids; stablelm-1.6b (MHA, no
+# qk-norm) is the system test's first model
+CASES = [pytest.param(dtype, kind, arch, id="-".join(
+             ([] if arch == "qwen3-4b" else [arch]) + [dtype, str(kind)]))
+         for arch in ("qwen3-4b", "stablelm-1.6b")
+         for dtype in ("float32", "bfloat16")
+         for kind in (None, "exact", "trunc", "w8")]
+
+
+@pytest.mark.parametrize("dtype,kind,arch", CASES)
+def test_forward_and_decode_match_jax(dtype, kind, arch):
+    cj, ct, params, pt, tokens, lut = _setup(dtype, kind, arch)
     jlut = None if lut is None else jnp.asarray(lut)
     jfwd, jstep = _jax_fns(cj, params, jlut, dtype)
 
