@@ -27,6 +27,15 @@ failing the run on any mismatch:
    plan and a mixed-width plan that holds both widths serve too; every
    batch's tokens, and one decode step's logits, equal the plain route's
    on the same plan;
+   the control plane (``[control]`` lines): every engine captures its
+   decode step once as a CUDA graph and replays it for every token; an
+   adaptive W4A4 serve whose ``QoSController`` walks a ``PlanLadder``
+   while a ``LibraryWatcher`` picks up an operator put into the store
+   mid-serve, with a shadow step every batch; a class-aware serve
+   (``ClassScheduler``, ``OnlineSensitivity``) over the mixed map; each
+   captured once, its last batch bit-equal to the eager kernel route
+   (tokens and final logits) and to the plain route (tokens), a replay on
+   the final plan bit-equal to an eager step and timed against it;
 4. serve full-width qwen3-4b (random weights from a seed, bf16) at W4A4
    through ``ServingEngine.serve``, then one batch again with the plain LUT
    matmul: the generated tokens must be identical;
@@ -40,6 +49,9 @@ failing the run on any mismatch:
 
 Each main path is driven with the launch counters set to 0 just before it
 and read just after; a kernel of the path with 0 launches fails the run.
+A graph replay credits each kernel's counter with the launches it makes
+(``StaticStep.launches_per_replay``), so the counts are the kernels'
+launches on the card, the warm-up before the capture included.
 Needs one CUDA card; exits nonzero and prints no result without one.
 Details go to ``chiprun_out/chip_smoke.json``.
 """
@@ -1094,11 +1106,306 @@ def phase_plans(torch, cfg, params, library: Path, results: dict) -> None:
     log(f"[plans] swap inside the width map to {target.plan_id}: both buffers "
         f"copied in place ({', '.join(f'{b}-bit at {p:#x}' for b, (_, p) in live_m.items())})")
     out["mixed"] = {"budget": budget, "layers_per_width": groups,
+                    "width_map": list(width_map),
                     "plan_id": plan_m.plan_id, "area_saving": plan_m.area_saving,
                     "engine_s": buildm_s, "ms_per_step": st_m.ms_per_step,
                     "launches": {k: counts_m[k] for k in ("approx_matmul_w4",
                                                           "approx_matmul_w8")},
                     "swapped_to": target.plan_id}
+
+
+# ---------------------------------------------------------------------------
+# phase 3c: the serving control plane over the captured decode step
+# ---------------------------------------------------------------------------
+def zero_mul(bits: int):
+    """The constant-zero ``bits``-bit multiplier: area about 0, the
+    cheapest operator a sweep could land."""
+    from repro_torch.core.circuits import Circuit
+
+    c = Circuit.empty(2 * bits, f"zero_mul{bits}")
+    z = c.const(False)
+    for _ in range(2 * bits):
+        c.mark_output(z)
+    return c
+
+
+def drain_order(per_tick, book, batch: int) -> list:
+    """The batches a class-aware serve drains, in order: each tick's
+    arrivals join their class's queue, drained by priority in batches of
+    up to ``batch`` (``ServingEngine.serve``'s own order, which depends
+    on the arrivals only)."""
+    from collections import deque
+
+    queues = {n: deque() for n in book.names}
+    out = []
+    for tick in per_tick:
+        for r in tick:
+            queues[book.route(r.qos_class)].append(r)
+        while any(queues.values()):
+            q = next(queues[n] for n in book.names if queues[n])
+            out.append([q.popleft() for _ in range(min(batch, len(q)))])
+    return out
+
+
+def eager_batch(torch, eng, reqs, luts, backend="auto"):
+    """One batch through ``decode_fn`` called directly, position by
+    position, on fresh caches: the eager route the engine's captured step
+    must reproduce.  Returns (tokens, the last step's logits)."""
+    import numpy as np
+
+    from repro_torch.models import decode_fn, init_caches
+    from repro_torch.models.lm import to_device_luts
+
+    cfg, dev = eng.cfg, torch.device("cuda")
+    step = decode_fn(cfg)
+    caches = init_caches(cfg, eng.batch, eng.total, device=dev)
+    prompts = np.zeros((eng.batch, eng.prompt_len), np.int32)
+    for i, r in enumerate(reqs):
+        prompts[i, :len(r.tokens)] = r.tokens
+    prompts = torch.from_numpy(prompts).to(dev)
+    stack = to_device_luts(luts, dev)
+
+    def run(tok, t):
+        return step(cfg, eng.params, caches, tok, t, luts=stack,
+                    width_map=eng._width_map, backend=backend)[0]
+
+    for t in range(eng.prompt_len):
+        logits = run(prompts[:, t:t + 1], t)
+    generated = []
+    for t in range(eng.prompt_len, eng.total):
+        tok = logits.argmax(-1, keepdim=True).to(torch.int32)
+        generated.append(tok)
+        logits = run(tok, t)
+    return torch.cat(generated, 1)[:len(reqs)].cpu().numpy(), logits
+
+
+def release(torch) -> None:
+    """Free what dropped engines held: their graphs' pools included."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def phase_control(torch, cfg, params, library: Path, results: dict) -> None:
+    """The control plane at full width over the captured step: an
+    adaptive W4A4 serve whose controller walks a plan ladder while the
+    watcher picks up an operator put into the store mid-serve, and a
+    class-aware serve over the ``[plans]`` mixed map with online
+    sensitivity.  Each keeps one capture; the last batch's tokens and
+    final logits equal the eager kernel route's, its tokens the plain
+    route's; a replay on the final plan equals an eager step bit for bit,
+    and the two are timed."""
+    import numpy as np
+
+    from repro_torch.core.synth import area
+    from repro_torch.library.compile import load_mul_frontier
+    from repro_torch.library.store import OperatorSignature, OperatorStore
+    from repro_torch.models import decode_fn, init_caches
+    from repro_torch.precision.plans import build_mixed_ladder, load_mixed_frontier
+    from repro_torch.precision.widths import get_width
+    from repro_torch.sensitivity import ClassBook, ClassScheduler, OnlineSensitivity
+    from repro_torch.serving import (ControllerConfig, LibraryWatcher, PlanLadder,
+                                     QoSController, ServingEngine, Telemetry,
+                                     steady, synth_requests)
+
+    out: dict = {}
+    results["control"] = out
+    L = cfg.n_layers
+    cfg4 = cfg.with_approx_mlp(4)
+    geometry = dict(batch=4, prompt_len=16, gen_len=8)
+    # an unreachable latency target: the controller walks up on any card;
+    # an unbounded drift budget keeps drift from holding it back
+    conf = ControllerConfig(target_ms_per_step=1e-6, drift_budget=1e9, patience=1,
+                            cooldown=0, shadow_every=1, ewma_alpha=1.0)
+
+    def serve(tag, eng, profile, kernels, on_end=None, **kw):
+        """Serve ``profile``; each batch's tokens, the stack the captured
+        step read and its final logits, copied at the batch's end.
+        ``kernels``: each LUT kernel of the step, with its layers."""
+        trail = []
+
+        def on_batch_end(engine, b):
+            st = engine.static_step
+            stack = ({k: v.clone() for k, v in st.luts.items()}
+                     if isinstance(st.luts, dict) else st.luts.clone())
+            trail.append((engine.last_tokens.copy(), stack, st.logits.clone()))
+            if on_end is not None:
+                on_end(engine, b)
+
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tel = eng.serve(profile, telemetry=Telemetry(), on_batch_end=on_batch_end,
+                        log=lambda m: log(f"[control] {tag}: {m}"), **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        st = eng.static_step
+        require(eng.trace_count == 1, f"{tag}: the step was captured "
+                f"{eng.trace_count} times")
+        for k in kernels:
+            require(counts[k] > 0, f"{tag}: no {k} launched under replay")
+        require(st.launches_per_replay == {k: 3 * n for k, n in kernels.items()},
+                f"{tag}: launches a replay {st.launches_per_replay}, expected "
+                f"3 for each of the layers {kernels}")
+        s = tel.summary()
+        for i, e in enumerate(tel.events):
+            log(f"[control] {tag} batch {i}: class {e['class'] or '-'}, "
+                f"{e['n_requests']} requests, plan {e['plan']}, "
+                f"{e['ms_per_step']:.2f} ms/step, drift {e['drift']}")
+        launched = ", ".join(
+            f"{k} {counts[k]} ({st.launches_per_replay[k]} a replay x "
+            f"{st.replays} replays + {counts[k] - st.launches_per_replay[k] * st.replays} "
+            f"in the warm-up)" for k in kernels)
+        log(f"[control] {tag}: {s['batches']} batches in {wall:.2f} s, swaps "
+            f"{s['swaps_by_reason']}, decode step captured {eng.trace_count}x in "
+            f"{st.capture_s:.3f} s (graph pool {st.pool_bytes / 2**20:.1f} MiB), "
+            f"{st.replays} replays; launches {launched}")
+        row = {"summary": s, "swaps": tel.swaps, "events": list(tel.events),
+               "wall_s": wall, "trace_count": eng.trace_count,
+               "capture_s": st.capture_s, "pool_bytes": st.pool_bytes,
+               "replays": st.replays, "launches": {k: counts[k] for k in kernels},
+               "launches_per_replay": st.launches_per_replay}
+        return tel, trail, row
+
+    def hold_last(tag, eng, reqs, trail, **plain_kw):
+        """The last batch again through the eager kernel route (tokens
+        and final logits bit-equal) and the plain route (tokens)."""
+        tokens, stack, logits = trail[-1]
+        got_t, got_l = eager_batch(torch, eng, reqs, stack)
+        require(np.array_equal(got_t, tokens), f"{tag}: the last batch's tokens "
+                f"differ from the eager kernel route's")
+        require(torch.equal(got_l, logits), f"{tag}: the last batch's final logits "
+                f"differ from the eager kernel route's")
+        plain = ServingEngine(cfg4, params, backend="ref", **geometry, **plain_kw)
+        plain.run_batch(reqs, **({"luts": stack} if "plan" in plain_kw else {}))
+        require(np.array_equal(plain.last_tokens, tokens),
+                f"{tag}: the last batch's tokens differ from the plain route's")
+        log(f"[control] {tag}: last batch bit-equal to the eager kernel route "
+            f"(tokens and final logits) and to the plain route (tokens): "
+            f"{tokens[0].tolist()}")
+        del plain
+        release(torch)
+
+    # 1. the adaptive uniform W4A4 serve
+    sens = np.asarray(results["plans"]["sensitivities"])
+    compiled, exact_area, _ = load_mul_frontier(library)
+    ladder = PlanLadder.build(compiled, L, exact_area=exact_area, sensitivities=sens,
+                              levels=6)
+    require(len(ladder) >= 4, f"a W4A4 ladder of {len(ladder)} levels, need 4")
+    store = OperatorStore(library)
+
+    def densify(engine, b):
+        if b == 1:   # a sweep lands the cheapest possible operator mid-serve
+            circ = zero_mul(4)
+            store.put_circuit(circ, OperatorSignature("mul", 4, "wce", 225),
+                              area=area(circ), source="chip_smoke")
+
+    eng = ServingEngine(cfg4, params, plan=ladder.plan(0), compiled=compiled,
+                        exact_area=exact_area, sensitivities=sens, **geometry)
+    profile = steady(4, 4, prompt_len=16, gen_len=8)
+    watcher = LibraryWatcher(library, min_poll_s=0.0)
+    tel, trail, row = serve("uniform", eng, profile, {"approx_matmul_w4": L},
+                            on_end=densify, controller=QoSController(ladder, conf),
+                            watcher=watcher)
+    reasons = [sw["reason"] for sw in tel.swaps]
+    require(any(r.startswith("qos-") for r in reasons) and "library" in reasons,
+            f"uniform serve swaps {tel.swaps}: need a qos-* and a library swap")
+    drifts = [e["drift"] for e in tel.events]
+    require(all(d is not None and np.isfinite(d) for d in drifts),
+            f"uniform serve drift samples {drifts}")
+    for sw in tel.swaps:
+        log(f"[control] uniform swap at batch {sw['batch']}: {sw['reason']} "
+            f"{sw['from']} -> {sw['to']}")
+    log(f"[control] uniform: watcher refreshes {watcher.refreshes}, drift samples "
+        f"{drifts}, ms/step {[e['ms_per_step'] for e in tel.events]}")
+    last = synth_requests(profile, cfg.vocab_size, 0)[-1]
+    hold_last("uniform", eng, last, trail, luts=trail[-1][1])
+
+    # one decode step on the final plan: a replay against an eager step
+    eng.run_batch(last)
+    want_t, want_l = eager_batch(torch, eng, last, eng._luts)
+    st = eng.static_step
+    require(np.array_equal(eng.last_tokens, want_t) and torch.equal(st.logits, want_l),
+            "final plan: the replayed step differs from the eager kernel route")
+    step, caches = decode_fn(cfg4), init_caches(cfg4, 4, eng.total, device="cuda")
+    tok = torch.zeros((4, 1), dtype=torch.int32, device="cuda")
+
+    def eager_step():
+        step(cfg4, params, caches, tok, 3, luts=eng._luts)
+
+    graph_ms = time_ms(torch, st.replay, iters=20)
+    eager_ms = time_ms(torch, eager_step, iters=5)
+
+    def host_ms(fn, n):
+        """The host's time to return from ``fn`` on an idle card, median."""
+        times = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append(1e3 * (time.perf_counter() - t0))
+        torch.cuda.synchronize()
+        return float(np.median(times))
+
+    host_replay_ms = host_ms(st.replay, 10)
+    host_eager_ms = host_ms(eager_step, 3)
+    profiled = profile_step(torch, st.replay, tag="[control] replay")
+    log(f"[control] final plan {eng.plan.plan_id}: a replay's logits bit-equal to "
+        f"the eager kernel route's; W4A4 decode step, batch 4: graph replay "
+        f"{graph_ms:.3f} ms, eager {eager_ms:.3f} ms (CUDA events); host time to "
+        f"launch one replay {host_replay_ms:.4f} ms, to enqueue one eager step "
+        f"{host_eager_ms:.2f} ms (medians, idle card); capture {st.capture_s:.3f} s, "
+        f"graph pool {st.pool_bytes / 2**20:.1f} MiB")
+    out["uniform"] = row | {"final_plan": eng.plan.plan_id, "graph_ms": graph_ms,
+                            "eager_ms": eager_ms, "host_replay_ms": host_replay_ms,
+                            "host_eager_ms": host_eager_ms,
+                            "watcher_refreshes": watcher.refreshes,
+                            "replay_profile": profiled}
+    del eng, st, caches
+    release(torch)
+
+    # 2. the class-aware serve over the [plans] mixed map
+    width_map = tuple(results["plans"]["mixed"]["width_map"])
+    mixed = load_mixed_frontier(library)
+    sens_mixed = {b: np.full(L, (get_width(4).qmax / get_width(b).qmax) ** 2)
+                  for b in mixed.widths}
+    mladder = build_mixed_ladder(mixed, width_map, sens_mixed, levels=4)
+    book = ClassBook.parse("gold:1.0,batch:1e9")
+    scheduler = ClassScheduler(book, mladder, shadow_every=1)
+    online = OnlineSensitivity(L)
+    mkw = dict(plan=mladder.plan(0), compiled=mixed.compiled,
+               sensitivities=sens_mixed, width_map=width_map)
+    engm = ServingEngine(cfg4, params, **mkw, **geometry)
+    profile_m = steady(4, 4, prompt_len=16, gen_len=8,
+                       class_mix=(("gold", 0.5), ("batch", 0.5)))
+    tel_m, trail_m, row_m = serve(
+        "mixed", engm, profile_m,
+        {"approx_matmul_w4": width_map.count(4), "approx_matmul_w8": width_map.count(8)},
+        controller=QoSController(mladder, conf), scheduler=scheduler, online=online)
+    classes = tel_m.summary()["classes"]
+    require(set(classes) == {"gold", "batch"}, f"classes served {set(classes)}")
+    require(all(r["drift_samples"] >= 1 for r in classes.values()),
+            f"class drift samples {classes}")
+    require(classes["gold"]["mean_drift"] <= classes["batch"]["mean_drift"],
+            f"gold mean drift {classes['gold']['mean_drift']} > batch's "
+            f"{classes['batch']['mean_drift']}")
+    require(online.n_updates >= 1, "the online estimate took no sample")
+    log(f"[control] mixed map {dict((b, width_map.count(b)) for b in sorted(set(width_map)))}: "
+        + "; ".join(f"{n} mean drift {r['mean_drift']} over {r['drift_samples']} "
+                    f"samples, {r['ms_per_step']} ms/step" for n, r in classes.items())
+        + f"; class caps {scheduler.snapshot()}; online estimate over "
+          f"{online.n_updates} samples, per-layer "
+          f"{online.sensitivities().min():.4g}..{online.sensitivities().max():.4g}")
+    batches = drain_order(synth_requests(profile_m, cfg.vocab_size, 0), book, 4)
+    require(len(batches) == len(trail_m), "the drain order differs from the serve's")
+    hold_last("mixed", engm, batches[-1], trail_m, **mkw)
+    out["mixed"] = row_m | {"classes": classes,
+                            "online": online.sensitivities().tolist()}
+    del engm
+    release(torch)
 
 
 # ---------------------------------------------------------------------------
@@ -1150,22 +1457,23 @@ def phase_serve(torch, cfg, params, results: dict) -> None:
     eng = ServingEngine(cfg.with_approx_mlp(4), params, batch=4, prompt_len=16,
                         gen_len=16, luts=w4)
     reset_counts()
-    stats = eng.serve(profile, seed=0)
+    tel = eng.serve(profile, seed=0)
     counts = read_counts()
     results["launches"]["approx_matmul_w4"] = counts["approx_matmul_w4"]
     require(counts["approx_matmul_w4"] > 0, "W4A4 serve launched no approx_matmul_w4")
     require(counts["flash_attention"] == 0, "decode ran the flash kernel")
     per_step = 3 * cfg.n_layers
-    log(f"[serve w4a4] {len(stats)} batches, approx_matmul_w4 launches "
-        f"{counts['approx_matmul_w4']} ({per_step} per step x "
-        f"{counts['approx_matmul_w4'] // per_step} steps)")
-    for i, s in enumerate(stats):
-        log(f"[serve w4a4] batch {i}: prefill {s.prefill_tok_s:.1f} tok/s, "
-            f"decode {s.decode_tok_s:.1f} tok/s, {s.ms_per_step:.2f} ms/step")
-    results["serve_w4"] = [s.__dict__ | {"ms_per_step": s.ms_per_step,
-                                         "decode_tok_s": s.decode_tok_s,
-                                         "prefill_tok_s": s.prefill_tok_s}
-                           for s in stats]
+    st = eng.static_step
+    require(eng.trace_count == 1 and st.launches_per_replay == {"approx_matmul_w4": per_step},
+            f"W4A4 serve captured {eng.trace_count}x, {st.launches_per_replay} a replay")
+    log(f"[serve w4a4] {tel.n_batches} batches, approx_matmul_w4 launches "
+        f"{counts['approx_matmul_w4']} ({per_step} a replay x {st.replays} replays "
+        f"+ {counts['approx_matmul_w4'] - per_step * st.replays} in the warm-up "
+        f"before the one capture)")
+    for i, e in enumerate(tel.events):
+        log(f"[serve w4a4] batch {i}: prefill {e['prefill_tok_s']} tok/s, "
+            f"decode {e['decode_tok_s']} tok/s, {e['ms_per_step']:.2f} ms/step")
+    results["serve_w4"] = list(tel.events)
     tokens = eng.last_tokens
     require(tokens.shape == (4, 16) and (tokens >= 0).all()
             and (tokens < cfg.vocab_size).all(), f"bad tokens {tokens.shape}")
@@ -1251,7 +1559,7 @@ def step_breakdown(torch, cfg, params, w4, eng) -> dict:
     return out
 
 
-def profile_step(torch, decode) -> dict:
+def profile_step(torch, decode, tag: str = "[step]") -> dict:
     """Device time of one decode step by kernel, from ``torch.profiler``.
     The profiler is untried on the card's machine: if it records no device
     time, the breakdown above (CUDA events) is all there is."""
@@ -1267,15 +1575,15 @@ def profile_step(torch, decode) -> dict:
             and str(e.device_type).endswith("CUDA")]
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
     if busy_ms == 0:
-        log("[step] profiler recorded no device time: not measured")
+        log(f"{tag} profiler recorded no device time: not measured")
         return {"profile": "not measured"}
     top = sorted(rows, key=lambda e: -e.self_device_time_total)[:8]
     launches = sum(e.count for e in rows)
-    log(f"[step] profiled step: wall {wall_ms:.2f} ms, device busy "
+    log(f"{tag} profiled step: wall {wall_ms:.2f} ms, device busy "
         f"{busy_ms:.2f} ms (idle {100 * (1 - busy_ms / wall_ms):.0f}%), "
         f"{launches} kernel launches")
     for e in top:
-        log(f"[step]   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} "
+        log(f"{tag}   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} "
             f"{e.key[:90]}")
     return {"profile": {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
                         "kernel_launches": launches,
@@ -1354,10 +1662,21 @@ def main() -> int:
         f"{cfg.n_params() / 1e9:.2f} B params in {cfg.dtype}, init "
         f"{time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
-    phase_search_serve(torch, cfg, params, library, results)
-    phase_plans(torch, cfg, params, library, results)
-    phase_serve(torch, cfg, params, results)
-    phase_forward(torch, cfg, params, results)
+    phases = [("search serve", lambda: phase_search_serve(torch, cfg, params, library, results)),
+              ("plans", lambda: phase_plans(torch, cfg, params, library, results)),
+              ("control", lambda: phase_control(torch, cfg, params, library, results)),
+              ("serve", lambda: phase_serve(torch, cfg, params, results)),
+              ("forward", lambda: phase_forward(torch, cfg, params, results))]
+    for name, run in phases:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run()
+        release(torch)
+        peak = torch.cuda.max_memory_reserved() / 2**30
+        log(f"[memory] {name}: {time.perf_counter() - t0:.1f} s, peak reserved "
+            f"{peak:.2f} GiB")
+        results.setdefault("phase", {})[name] = {
+            "seconds": time.perf_counter() - t0, "max_memory_reserved_gib": peak}
 
     sources = {"approx_matmul_w4": ("src/repro_torch/kernels/csrc/approx_matmul.cu",
                                     "src/repro/kernels/approx_matmul.py:74"),

@@ -61,3 +61,12 @@ def check_luts(luts: torch.Tensor, *, backend: Backend = "auto") -> None:
     is composed (:func:`repro_torch.kernels.approx_matmul.check_tables`)."""
     if use_kernel(luts, backend):
         _am.check_tables(luts)
+
+
+def launch_counters() -> tuple:
+    """The kernel wrappers, each counting the launches of its kernel in
+    its ``launches`` attribute.  A CUDA graph replays kernels without
+    calling their wrappers, so whoever replays one credits these counts
+    (:class:`repro_torch.serving.engine.ServingEngine` does)."""
+    return (_am.approx_matmul_w4, _am.approx_matmul_w8,
+            _fa.flash_attention, _te.template_eval)

@@ -162,39 +162,52 @@ def attention_full(
     return linear(out.reshape(B, S, -1), p["wo"])
 
 
+def decode_position(pos, device: torch.device) -> torch.Tensor:
+    """The absolute position of a decode step as a one-element ``long``
+    tensor on ``device``: a Python ``int`` is filled there (no copy from
+    the host, so no synchronise), a 0-d or one-element tensor is
+    reshaped.  Every value derived from it stays on the device, which is
+    what lets a captured step replay at any position."""
+    if isinstance(pos, torch.Tensor):
+        return pos.reshape(1).long()
+    return torch.full((1,), int(pos), dtype=torch.long, device=device)
+
+
 def attention_decode(
     cfg: ModelConfig,
     p: Params,
     x: torch.Tensor,                # (B, 1, D)
     cache: dict[str, torch.Tensor],  # {"k","v"}: (B, C, Hkv, hd)
-    pos: int,                       # absolute position of the new token
+    pos,                            # int | (1,) long tensor: the new token's
+    #                                 absolute position
     window,                         # None | int — ring-buffer window if set
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """One decode step of attention.  The cache is written in place, where
     the reference returns a new cache from ``dynamic_update_slice`` and
-    relies on buffer donation to reuse the memory."""
+    relies on buffer donation to reuse the memory.  The slot is written
+    through ``index_copy_`` with a one-element index: a 0-d tensor used
+    as an index would read it back to the host."""
     B = x.shape[0]
     q, k_new, v_new = _qkv(cfg, p, x)
-    # a fill on the device: torch.tensor([pos], device=...) would copy from
-    # the host and synchronise the stream once per layer
-    pos_t = torch.full((1,), pos, device=x.device)
+    pos_t = decode_position(pos, x.device)
     cos, sin = rope_tables(pos_t, cfg.hd, cfg.rope_theta)
     q = apply_rope(q, cos[None], sin[None])
     k_new = apply_rope(k_new, cos[None], sin[None])
 
     C = cache["k"].shape[1]
-    slot = pos % C if window is not None else pos
-    cache["k"][:, slot] = k_new[:, 0]
-    cache["v"][:, slot] = v_new[:, 0]
+    slot = pos_t % C if window is not None else pos_t
+    cache["k"].index_copy_(1, slot, k_new)
+    cache["v"].index_copy_(1, slot, v_new)
 
     idx = torch.arange(C, device=x.device)
     if window is not None:
         # ring buffer: slot i holds absolute position in (pos - C, pos]
-        k_pos = torch.where(idx <= slot, pos - slot + idx, pos - slot - C + idx)
-        k_valid = (k_pos >= 0) & (k_pos > pos - C - 1)
+        k_pos = torch.where(idx <= slot, pos_t - slot + idx,
+                            pos_t - slot - C + idx)
+        k_valid = (k_pos >= 0) & (k_pos > pos_t - C - 1)
     else:
         k_pos = idx
-        k_valid = idx <= pos
+        k_valid = idx <= pos_t
     out = _masked_softmax_attn(q, cache["k"], cache["v"], pos_t, k_pos, None,
                                k_valid, f32_math=cfg.attn_f32)
     out = linear(out.reshape(B, 1, -1), p["wo"])

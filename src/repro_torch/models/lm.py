@@ -173,7 +173,7 @@ def decode_step(
     params: Params,
     caches: list[Params],
     tokens: torch.Tensor,   # (B, 1) int — the newest token
-    pos: int,               # its absolute position
+    pos,                    # its absolute position: int or (1,) tensor
     *,
     luts: torch.Tensor | dict[int, torch.Tensor] | None = None,
     width_map: tuple[int, ...] | None = None,
@@ -181,6 +181,12 @@ def decode_step(
 ) -> tuple[torch.Tensor, list[Params]]:
     """One serving step: append the token at ``pos`` (caches are written
     in place) and return next-token logits (B, V) in float32.
+
+    ``pos``: a Python ``int``, or a 0-d or one-element integer tensor on
+    the model's device.  With a tensor no value on the host depends on
+    the position, so the step can be captured once as a CUDA graph and
+    replayed at every position (:class:`repro_torch.serving.engine.ServingEngine`
+    does); both give the same logits bit for bit.
 
     ``luts``: a per-layer (L, side, side) stack, one (side, side) table
     shared by every layer, or a mixed-width dict ``{bits: (n_group, side,
@@ -205,6 +211,7 @@ def decode_step(
                 f"per layer (got {width_map!r} for {cfg.n_layers} layers)")
         group_pos = [width_map[:i].count(width_map[i])
                      for i in range(cfg.n_layers)]
+    pos = L.decode_position(pos, params["embed"].device)
     x = params["embed"][tokens.long()].to(cfg.torch_dtype)
     for i, (lp, cache) in enumerate(zip(params["layers"], caches)):
         if isinstance(win, np.ndarray):

@@ -1,23 +1,75 @@
-"""The plan ladder a QoS controller walks between batches.
+"""QoS controller: walk the operator frontier between batches.
 
-Own copy of ``repro.serving.controller``, trimmed to :class:`PlanLadder`:
-a monotone sequence of QoS plans from "most exact" (level 0) down to
-"full greedy descent" (last level), built from the frontier by
-:func:`repro_torch.library.qos.plan_ladder`, each level's stack built
-once.  The controller that walks it (``QoSController``,
-``ControllerConfig``, ``effective_load_ms``) is ROADMAP.md §1's next
-item.
+Own copy of ``repro.serving.controller``, whole.
+
+The controller owns a :class:`PlanLadder` — a monotone sequence of QoS
+plans from "most exact" (level 0) down to "full greedy descent" (last
+level), built once from the frontier via :func:`repro_torch.library.qos.plan_ladder`
+and rebuilt on library refreshes.  Between batches it observes an EWMA of
+per-step decode latency plus the *measured* logit drift against an exact
+shadow step (sampled every ``shadow_every`` batches) and decides whether
+to move one level:
+
+* **up** (cheaper operators) when smoothed latency sits above the target
+  band *and* measured drift leaves headroom under the budget;
+* **down** (more exact) when measured drift eats into the budget — drift
+  pressure beats load pressure — or when latency sits comfortably below
+  the band, so idle capacity buys accuracy back.
+
+Moves need ``patience`` consecutive out-of-band observations and are
+followed by ``cooldown`` quiet batches; inside the deadband both streaks
+reset.  Together these are the hysteresis that keeps an oscillating load
+from flapping plans (pinned by ``tests/test_serving.py`` and its port's replay).
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Sequence
 
 import numpy as np
 
 from ..library.qos import LayerPlan, plan_ladder, stack_luts
 
-__all__ = ["PlanLadder"]
+__all__ = ["ControllerConfig", "PlanLadder", "QoSController",
+           "effective_load_ms"]
+
+
+def effective_load_ms(raw_ms: float, *, backlog: int = 0, capacity: int = 1,
+                      occupancy: float | None = None) -> float:
+    """The Little's-law-flavoured load signal the controller observes.
+
+    Raw step latency is nearly plan-independent, so outstanding work is
+    what says "trade accuracy for throughput".  The fixed-batch loop
+    (``occupancy=None``) scales service time by whole-queue backlog:
+    ``raw * (1 + backlog / capacity)``.  Under continuous batching that
+    double-counts — most "backlog" is requests *already being served* —
+    so the signal becomes slot occupancy plus true admission-queue
+    depth: ``raw * (occupancy + backlog / capacity)``, where ``backlog``
+    counts only requests still waiting for a slot.  An idle continuous
+    pool therefore reports near-zero load instead of its raw step time,
+    and a full pool with an empty queue reports exactly ``raw``."""
+    cap = max(1, int(capacity))
+    if occupancy is None:
+        return raw_ms * (1.0 + backlog / cap)
+    return raw_ms * (float(occupancy) + backlog / cap)
+
+
+@dataclass(frozen=True)
+class ControllerConfig:
+    target_ms_per_step: float = 50.0   # latency target the EWMA is held to
+    drift_budget: float = 0.05         # mean |Δlogit| allowed vs exact shadow
+    ewma_alpha: float = 0.4            # smoothing for latency and drift
+    deadband: float = 0.15             # +/- fraction around the target: no-op
+    patience: int = 2                  # consecutive out-of-band obs to move
+    cooldown: int = 2                  # quiet batches after any move
+    shadow_every: int = 4              # shadow-drift sampling period (batches)
+    drift_headroom: float = 0.7        # may only move up while
+    #                                    ewma_drift <= headroom * budget
+
+    def __post_init__(self) -> None:
+        assert self.target_ms_per_step > 0 and self.patience >= 1
+        assert 0 < self.ewma_alpha <= 1 and 0 <= self.deadband < 1
 
 
 class PlanLadder:
@@ -93,3 +145,95 @@ class PlanLadder:
             compiled, len(sens), exact_area=exact_area,
             sensitivities=sens, levels=self.requested_levels,
         )
+
+
+class QoSController:
+    def __init__(self, ladder: PlanLadder, config: ControllerConfig,
+                 *, level: int = 0) -> None:
+        self.ladder = ladder
+        self.config = config
+        self.level = min(level, len(ladder) - 1)
+        self.ewma_ms: float | None = None
+        self.ewma_drift = 0.0
+        self._hot = 0          # consecutive obs above the band
+        self._cool = 0         # consecutive obs below the band
+        self._over = 0         # consecutive obs over the drift budget
+        self._quiet = 0        # cooldown countdown
+        self.moves = 0
+        self.last_reason: str | None = None
+
+    # ------------------------------------------------------------------ state
+    @property
+    def plan(self) -> LayerPlan:
+        return self.ladder.plan(self.level)
+
+    def luts(self) -> np.ndarray:
+        return self.ladder.luts(self.level)
+
+    def wants_shadow(self, batch_idx: int) -> bool:
+        """Should the engine sample an exact shadow step this batch?"""
+        return (self.config.drift_budget > 0
+                and batch_idx % max(1, self.config.shadow_every) == 0)
+
+    # ---------------------------------------------------------------- control
+    def observe(self, ms_per_step: float, drift: float | None = None
+                ) -> int | None:
+        """Feed one batch's measurements; returns the new level when the
+        controller decides to move, else ``None``."""
+        a = self.config.ewma_alpha
+        self.ewma_ms = (ms_per_step if self.ewma_ms is None
+                        else a * ms_per_step + (1 - a) * self.ewma_ms)
+        if drift is not None:
+            self.ewma_drift = a * float(drift) + (1 - a) * self.ewma_drift
+
+        if self._quiet > 0:
+            self._quiet -= 1
+            return None
+
+        hi = self.config.target_ms_per_step * (1 + self.config.deadband)
+        lo = self.config.target_ms_per_step * (1 - self.config.deadband)
+        if self.ewma_drift > self.config.drift_budget:
+            self._over += 1
+        else:
+            self._over = 0
+        if self.ewma_ms > hi:
+            self._hot, self._cool = self._hot + 1, 0
+        elif self.ewma_ms < lo:
+            self._hot, self._cool = 0, self._cool + 1
+        else:
+            self._hot = self._cool = 0   # deadband: hysteresis resets streaks
+
+        p = self.config.patience
+        headroom = (self.ewma_drift
+                    <= self.config.drift_headroom * self.config.drift_budget)
+        if self._over >= p and self.level > 0:
+            return self._move(-1, "drift")           # accuracy first
+        if self._hot >= p and headroom and self.level < len(self.ladder) - 1:
+            return self._move(+1, "load")
+        if self._cool >= p and self.level > 0:
+            return self._move(-1, "idle")
+        return None
+
+    def _move(self, delta: int, reason: str) -> int:
+        self.level += delta
+        self._hot = self._cool = self._over = 0
+        self._quiet = self.config.cooldown
+        self.moves += 1
+        self.last_reason = reason
+        return self.level
+
+    def adopt(self, ladder: PlanLadder, *, level: int | None = None) -> None:
+        """Switch to an already-built ladder, clamping the level.  The
+        level index is preserved (the ladder's budget grid shifts with the
+        frontier, but relative position on it is the controller's
+        operating point)."""
+        self.ladder = ladder
+        self.level = min(self.level if level is None else level,
+                         len(ladder) - 1)
+
+    def refresh(self, compiled, exact_area: float) -> None:
+        """Rebuild the ladder against a refreshed frontier and adopt it.
+        The serving engine's watcher path instead builds first and adopts
+        only after the new stack validated (see
+        :meth:`repro_torch.serving.engine.ServingEngine.refresh_library`)."""
+        self.adopt(self.ladder.refresh(compiled, exact_area))

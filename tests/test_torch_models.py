@@ -115,6 +115,37 @@ def test_forward_and_decode_match_jax(dtype, kind, arch):
         assert np.abs(dt_.numpy() - got[:, t].numpy()).max() < TOL[dtype]
 
 
+@pytest.mark.parametrize("window", [None, 3], ids=["global", "ring"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_at_a_tensor_position_matches_the_int_one(dtype, window):
+    """The position as a device tensor (0-d or one-element, int32 or
+    long) gives the int position's logits and caches bit for bit, on the
+    global cache and on the ring a sliding window makes (3 slots for 6
+    positions, so it wraps); both match the reference's decode."""
+    cj, ct, params, pt, tokens, lut = _setup(dtype, "trunc")
+    cj = dataclasses.replace(cj, sliding_window=window)
+    ct = dataclasses.replace(ct, sliding_window=window)
+    jlut = jnp.asarray(lut)
+    _, jstep = _jax_fns(cj, params, jlut, dtype)
+    tlut = torch.from_numpy(lut)
+    jcaches = jlm.init_decode_caches(cj, B, S)
+    c_int = lm.init_decode_caches(ct, B, S, device="cpu")
+    c_tensor = lm.init_decode_caches(ct, B, S, device="cpu")
+    assert c_int[0]["k"].shape[1] == (S if window is None else window)
+    forms = [lambda t: torch.tensor(t), lambda t: torch.tensor([t]),
+             lambda t: torch.tensor(t, dtype=torch.int32)]
+    for t in range(S):
+        tok = torch.from_numpy(tokens[:, t:t + 1])
+        want, c_int = lm.decode_step(ct, pt, c_int, tok, t, luts=tlut)
+        got, c_tensor = lm.decode_step(ct, pt, c_tensor, tok, forms[t % 3](t),
+                                       luts=tlut)
+        assert torch.equal(got, want)
+        assert all(torch.equal(a[k], b[k]) for a, b in zip(c_int, c_tensor)
+                   for k in ("k", "v"))
+        dj, jcaches = jstep(jcaches, jnp.asarray(tokens[:, t:t + 1]), jnp.int32(t))
+        assert np.abs(got.numpy() - np.asarray(dj)).max() < TOL[dtype]
+
+
 def test_shared_table_equals_per_layer_stack():
     """One (side, side) table is shared by every layer, as in the reference."""
     _, ct, _, pt, tokens, lut = _setup("float32", "exact")

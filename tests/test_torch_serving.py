@@ -87,27 +87,34 @@ def test_greedy_tokens_match_jax_engine(engines):
 def test_serve_matches_jax_engine(engines):
     je, pe = engines
     tel = je.serve(jax_steady(2, 3, prompt_len=PROMPT, gen_len=GEN), seed=3)
-    stats = pe.serve(steady(2, 3, prompt_len=PROMPT, gen_len=GEN), seed=3)
-    assert [s.n_requests for s in stats] == [2, 1, 2, 1]
-    assert sum(s.decode_tokens for s in stats) == 6 * GEN
-    assert tel.n_batches == len(stats)
+    ptel = pe.serve(steady(2, 3, prompt_len=PROMPT, gen_len=GEN), seed=3)
+    assert [e["n_requests"] for e in ptel.events] == [2, 1, 2, 1]
+    assert [e["n_requests"] for e in tel.events] == [2, 1, 2, 1]
+    assert sum(e["decode_tokens"] for e in ptel.events) == 6 * GEN
+    assert tel.n_batches == ptel.n_batches and tel.n_requests == ptel.n_requests
     assert np.array_equal(pe.last_tokens, je.last_tokens)
+    assert pe.trace_count == je.trace_count == 1
 
 
 def test_batch_override_copies_into_one_buffer(engines):
-    """A per-batch stack decodes that batch only, through one reused buffer;
-    the exact stack reproduces an exact-table engine."""
+    """A per-batch stack decodes that batch only, copied into the one
+    stack buffer the step reads; the live stack is untouched, and the
+    exact stack reproduces an exact-table engine."""
     _, pe = engines
     reqs = synth_requests(steady(1, 2, prompt_len=PROMPT, gen_len=GEN), 512, 1)[0]
     pe.run_batch(reqs)
     live = pe.last_tokens
+    before = pe._luts.clone()
     ex = (np.arange(16)[:, None] * np.arange(16)[None, :]).astype(np.int32)
     exact = np.stack([ex] * pe.cfg.n_layers)
+    buf = pe.static_step.luts
+    ptr = buf.data_ptr()
     pe.run_batch(reqs, luts=exact)
-    buf = pe._override
     tok_exact = pe.last_tokens
     pe.run_batch(reqs, luts=exact)
-    assert pe._override is buf and np.array_equal(pe.last_tokens, tok_exact)
+    assert pe.static_step.luts is buf and buf.data_ptr() == ptr
+    assert np.array_equal(pe.last_tokens, tok_exact)
+    assert torch.equal(pe._luts, before) and pe.trace_count == 1
     ref = ServingEngine(pe.cfg, pe.params, batch=2, prompt_len=PROMPT,
                         gen_len=GEN, luts=exact, device="cpu")
     ref.run_batch(reqs)
@@ -241,8 +248,18 @@ def test_mixed_plan_engine_matches_jax_engine_across_swaps(mixed_library):
     assert all(torch.equal(live[b], before[b]) for b in live)
     pe.run_batch(reqs)
     assert np.array_equal(pe.last_tokens, swapped)
+    # a per-batch {bits: stack} override decodes one batch on another
+    # level, copied per width group; the live stack is untouched
+    je.run_batch(reqs, luts=jladder.luts(0))
+    pe.run_batch(reqs, luts=ladder.luts(0))
+    assert np.array_equal(pe.last_tokens, je.last_tokens)
+    assert all(torch.equal(live[b], pe._luts[b]) for b in live)
     with pytest.raises(ValueError, match="override"):
-        pe.run_batch(reqs, luts=ladder.luts(0))
+        pe.run_batch(reqs, luts=ladder.luts(0)[8])
+    with pytest.raises(ValueError, match="override"):
+        pe.run_batch(reqs, luts={4: ladder.luts(0)[4]})
+    pe.run_batch(reqs)
+    assert np.array_equal(pe.last_tokens, swapped) and pe.trace_count == 1
 
 
 def test_plan_engine_refusals(two_op_library):
@@ -251,8 +268,8 @@ def test_plan_engine_refusals(two_op_library):
     plan = tselect_plan(compiled, np.ones(ct.n_layers), 0.0, exact_area=exact_area)
     kw = dict(batch=2, prompt_len=PROMPT, gen_len=GEN, device="cpu")
     pe = ServingEngine(ct, pt, plan=plan, compiled=compiled, **kw)
-    with pytest.raises(NotImplementedError, match="control plane"):
-        pe.swap_plan(plan, tstack_luts(plan, compiled), telemetry=object())
+    with pytest.raises(NotImplementedError, match="health"):
+        pe.serve(steady(1, 1, prompt_len=PROMPT, gen_len=GEN), health=object())
     with pytest.raises(NotImplementedError, match="sensitivity"):
         ServingEngine(ct, pt, plan=plan, compiled=compiled, sens_profile=object(), **kw)
     with pytest.raises(ValueError, match="not both"):
@@ -267,3 +284,49 @@ def test_plan_engine_refusals(two_op_library):
     assert raw.plan is None and raw.widths == (4,) and raw._exact_luts is None
     with pytest.raises(ValueError, match="without a QoS plan"):
         raw.swap_plan(plan, tstack_luts(plan, compiled))
+
+
+# ---------------------------------------------------------------------------
+# the captured step's buffers, and the class-aware mixed-width serve
+# ---------------------------------------------------------------------------
+def _addresses(pe):
+    st = pe.static_step
+    out = [st.tok.data_ptr(), st.pos.data_ptr(), st.logits.data_ptr()]
+    out += [c[k].data_ptr() for c in st.caches for k in ("k", "v")]
+    out += [t.data_ptr() for t in (st.luts.values() if isinstance(st.luts, dict)
+                                   else [st.luts])]
+    out += [t.data_ptr() for t in (pe._luts.values() if isinstance(pe._luts, dict)
+                                   else [pe._luts])]
+    return out
+
+
+def test_step_buffers_keep_their_addresses(two_op_library):
+    """The token, position, logits, cache and stack buffers of the one
+    built step, and the live stack, keep their addresses across swaps,
+    per-batch overrides, shadow steps, short padded batches and batches;
+    the shadow step leaves the batch's tokens as they were."""
+    _, ct, _, pt = _pair_models(4)
+    compiled, exact_area, _ = tload_mul_frontier(two_op_library)
+    ladder = PlanLadder.build(compiled, ct.n_layers, exact_area=exact_area, levels=4)
+    top = len(ladder) - 1
+    pe = ServingEngine(ct, pt, plan=ladder.plan(top), compiled=compiled,
+                       exact_area=exact_area, batch=2, prompt_len=PROMPT,
+                       gen_len=GEN, device="cpu")
+    reqs = _requests()
+    st = pe.run_batch(reqs)
+    assert st.drift is None
+    ptrs = _addresses(pe)
+    tokens = pe.last_tokens
+    shadowed = pe.run_batch(reqs, shadow=True)
+    assert np.array_equal(pe.last_tokens, tokens) and shadowed.drift > 0
+    assert pe.swap_plan(ladder.plan(0), ladder.luts(0))
+    exact = pe.run_batch(reqs, shadow=True)
+    assert exact.drift == 0.0
+    pe.run_batch(reqs, luts=ladder.luts(top))
+    assert np.array_equal(pe.last_tokens, tokens)
+    pe.run_batch(reqs[:1])
+    assert pe.last_tokens.shape == (1, GEN)
+    pe.run_batch(reqs, luts=ladder.luts(top), shadow=True)
+    assert np.array_equal(pe.last_tokens, tokens)
+    assert _addresses(pe) == ptrs and pe.trace_count == 1
+    assert pe.static_step.replays == 6 * (PROMPT + GEN) + 3   # 3 shadow steps
