@@ -36,6 +36,18 @@ failing the run on any mismatch:
    captured once, its last batch bit-equal to the eager kernel route
    (tokens and final logits) and to the plain route (tokens), a replay on
    the final plan bit-equal to an eager step and timed against it;
+   the continuous tier (``[continuous]`` lines): a
+   ``ContinuousServingEngine`` whose paged decode step is captured once
+   serves a spike of 20 requests over 8 slots and a 54-page pool at W4A4
+   (ms a step, tok/s at full occupancy, TTFT, peak pages, a replay against
+   the eager paged step); SLO preemption under a class scheduler, a QoS
+   controller, a health plane and a traced provenance ledger (every
+   request's lifecycle chain complete, the ledger gap-free, the cost report
+   reconciled, every page returned); two replicas behind the router; the
+   kernel route's completions and one step's logits equal the plain
+   route's, paged decode's tokens equal the dense step's, a preempted
+   request's tokens equal a non-preempting run's; a W8A8 serve equal to
+   its plain route;
 4. serve full-width qwen3-4b (random weights from a seed, bf16) at W4A4
    through ``ServingEngine.serve``, then one batch again with the plain LUT
    matmul: the generated tokens must be identical;
@@ -76,10 +88,16 @@ HBM_BPS = 3.35e12
 PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12,
             "int32": 132 * 64 * 1.98e9}
 
-# qwen3-4b MLP matmul shapes: decode (M = batch) and the B=2 x S=512
-# forward (M = 1024), for w1/w3 (K=d_model) and w2 (K=d_ff)
-MM_SHAPES = [(4, 2560, 9728), (4, 9728, 2560), (1024, 2560, 9728),
-             (1024, 9728, 2560)]
+# qwen3-4b MLP matmul shapes: decode (M = the fixed engine's batch of 4
+# and the continuous engine's 8 slots) and the B=2 x S=512 forward
+# (M = 1024), for w1/w3 (K=d_model) and w2 (K=d_ff)
+MM_SHAPES = [(4, 2560, 9728), (4, 9728, 2560), (8, 2560, 9728),
+             (8, 9728, 2560), (1024, 2560, 9728), (1024, 9728, 2560)]
+# the kernels line reports each LUT matmul at the rows of the paths that
+# launch it most: the continuous serve's 8 slots at W4A4; at W8A8 both
+# paths (the fixed batch and the continuous serve) run 4 rows
+LINE_SHAPES = {"approx_matmul_w4": [8, 2560, 9728],
+               "approx_matmul_w8": [4, 2560, 9728]}
 MM_RAGGED = [(37, 53, 29), (130, 257, 64), (1, 2560, 9728), (64, 9728, 2560)]
 # the tensor-core kernels' tile edges: activation rows around the 8-, 64-
 # and 128-row tiles, depths ending inside a 16-deep stage, columns ending
@@ -755,7 +773,7 @@ def phase_search(torch, results: dict) -> Path:
                      "plain_loop_s": plain_split["loop_s"],
                      "plain_harvest_s": plain_split["harvest_s"]})
     counts = read_counts()
-    results["launches"]["template_eval"] = counts["template_eval"]
+    credit(results, "search", counts, "template_eval")
     require(counts["template_eval"] == expected,
             f"template_eval launches {counts['template_eval']} != "
             f"sum of (generations + 1) over the kernel runs = {expected}")
@@ -1409,8 +1427,397 @@ def phase_control(torch, cfg, params, library: Path, results: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the continuous tier: paged decode captured once, SLO preemption, router
+# ---------------------------------------------------------------------------
+def phase_continuous(torch, cfg, params, library: Path, results: dict) -> None:
+    """The continuous engine at full width over the W4A4 ladder of
+    ``[plans]``: (1) the main serve, 8 slots over a 54-page pool, a spike
+    of 20 requests of 16-64 prompt tokens; (2) SLO preemption under a
+    class scheduler, a QoS controller, a health plane and a traced
+    provenance ledger; (3) two replicas behind the router; (4) exactness:
+    kernel route against the plain route, paged against dense decode, a
+    preempting run against a non-preempting one; (5) W8A8, kernel against
+    plain.  Every engine captures its paged step once."""
+    import numpy as np
+
+    from repro_torch.library.compile import load_mul_frontier
+    from repro_torch.models import decode_paged_fn, init_paged_caches
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.obs.costs import cost_report
+    from repro_torch.obs.health import HealthPlane
+    from repro_torch.obs.provenance import _ledgers, audit, read_ledger
+    from repro_torch.obs.requests import build_timelines
+    from repro_torch.sensitivity import ClassBook, ClassScheduler
+    from repro_torch.serving import (ContinuousServingEngine, ControllerConfig,
+                                     PageAllocator, PlanLadder, QoSController,
+                                     Replica, ReplicaRouter, ServingEngine,
+                                     Telemetry, parse_prompt_dist, spike, steady)
+    from repro_torch.serving.loadgen import make_profile
+    from repro_torch.serving.staggered import decode_alone, decode_staggered
+
+    dev = torch.device("cuda")
+    out: dict = {}
+    results["continuous"] = out
+    L = cfg.n_layers
+    cfg4 = cfg.with_approx_mlp(4)
+    sens = np.asarray(results["plans"]["sensitivities"])
+    compiled, exact_area, _ = load_mul_frontier(library)
+    ladder = PlanLadder.build(compiled, L, exact_area=exact_area, sensitivities=sens,
+                              levels=6)
+    require(len(ladder) >= 4, f"a W4A4 ladder of {len(ladder)} levels, need 4")
+    plan_kw = dict(compiled=compiled, exact_area=exact_area, sensitivities=sens)
+    # the geometry of parts 2-5: prompts up to 16 tokens, 8 generated,
+    # pages of 16
+    sp, sg, ps = 16, 8, 16
+
+    def engine(max_slots, prompt_len, gen_len, page_size, level=1, cfg_=cfg4,
+               **kw):
+        if "luts" not in kw:
+            kw = dict(plan=ladder.plan(level), **plan_kw) | kw
+        return ContinuousServingEngine(cfg_, params, max_slots=max_slots,
+                                       prompt_len=prompt_len, gen_len=gen_len,
+                                       page_size=page_size, device=dev, **kw)
+
+    def captured_once(tag, eng):
+        st = eng.static_step
+        require(eng.trace_count == 1, f"{tag}: the paged step was captured "
+                f"{eng.trace_count} times")
+        return st
+
+    def completions(eng):
+        return {rid: g.tolist() for rid, g in sorted(eng.completions.items())}
+
+    # 1. the main serve --------------------------------------------------
+    S, P, G = 8, 64, 32
+    eng = engine(S, P, G, 16)
+    profile = spike(6, 2, 10, at=3, width=1, prompt_len=P, gen_len=G,
+                    prompt_dist=parse_prompt_dist(f"uniform:16-{P}", P))
+    peak_pages = [0]
+
+    def on_step(e, _):
+        peak_pages[0] = max(peak_pages[0], e._alloc.used_pages)
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tel = eng.serve(profile, telemetry=Telemetry(), seed=0, steps_per_tick=16,
+                    on_step_end=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    st = captured_once("main serve", eng)
+    require(len(eng.completions) == profile.total_requests
+            and all(len(g) == G for g in eng.completions.values()),
+            f"main serve completed {len(eng.completions)} of "
+            f"{profile.total_requests} requests")
+    require(eng._alloc.used_pages == 0, "main serve kept pages")
+    eng._alloc.check_invariants()
+    toks = np.concatenate(list(eng.completions.values()))
+    require(((toks >= 0) & (toks < cfg.vocab_size)).all(), "tokens out of the vocabulary")
+    s = tel.summary()
+    events = list(tel.events)
+    full = [e for e in events if sum(e["active"].values()) == S]
+    full_s = sum(e["step_ms"] for e in full) / 1e3
+    full_tok_s = sum(e["decode_tokens"] for e in full) / full_s if full_s else 0.0
+    full_rows_s = S * len(full) / full_s if full_s else 0.0
+    occ = float(np.mean([sum(e["active"].values()) / S for e in events]))
+    lat, ttft = s["latency_ms_per_step"], s["ttft_ms"]
+    require(counts["approx_matmul_w4"] > 0, "the continuous serve launched no "
+            "approx_matmul_w4")
+    require(st.launches_per_replay == {"approx_matmul_w4": 3 * L},
+            f"launches a replay {st.launches_per_replay}")
+    credit(results, "continuous serve", counts, "approx_matmul_w4")
+    log(f"[continuous] main serve: {len(eng.completions)} requests completed in "
+        f"{s['steps']} steps, {wall:.2f} s; ms a step p50 {lat['p50']} p95 "
+        f"{lat['p95']} (host clock after the argmax read); decode "
+        f"{s['decode_tok_s']} tok/s overall; {len(full)} steps at full "
+        f"occupancy: {full_tok_s:.2f} decode tok/s, {full_rows_s:.2f} rows/s; mean "
+        f"occupancy {occ:.3f}; TTFT p50 {ttft['p50']} p95 {ttft['p95']} ms; pages "
+        f"at the peak {peak_pages[0]} of {eng.n_pages}; approx_matmul_w4 launches "
+        f"{counts['approx_matmul_w4']}")
+
+    # a replay against the eager paged step at full occupancy
+    alloc = PageAllocator(eng.n_pages, eng.page_size)
+    rng = np.random.default_rng(0)
+    T = eng.table_entries
+    tok = rng.integers(0, cfg.vocab_size, (S, 1)).astype(np.int32)
+    pos = rng.integers(0, P + G - 1, S).astype(np.int64)
+    for i in range(S):
+        alloc.alloc(i, P + G)
+    tab = np.stack([alloc.padded_table(i, T) for i in range(S)]).astype(np.int64)
+    act = np.ones(S, bool)
+    st.write(tok, pos, act, tab)
+    got = st.replay().clone()
+    caches = init_paged_caches(cfg4, S, eng.n_pages, eng.page_size, eng.total,
+                               device=dev)
+    for c, mine in zip(caches, st.caches):
+        for k in c:
+            c[k].copy_(mine[k])
+    step = decode_paged_fn(cfg4)
+    args = [torch.from_numpy(a).to(dev) for a in (tok, pos, act, tab)]
+
+    def eager():
+        return step(cfg4, params, caches, *args, luts=st.luts)[0]
+
+    want = eager()
+    require(torch.equal(got, want), "a paged replay differs from the eager paged step")
+    row = {"summary": s, "wall_s": wall, "steps_full": len(full),
+           "full_decode_tok_s": full_tok_s, "full_rows_s": full_rows_s,
+           "mean_occupancy": occ, "peak_pages": peak_pages[0], "n_pages": eng.n_pages,
+           "launches": counts["approx_matmul_w4"], "capture_s": st.capture_s,
+           "pool_bytes": st.pool_bytes, "trace_count": eng.trace_count,
+           "step_ms": [e["step_ms"] for e in events]}
+    graph_ms = time_ms(torch, st.replay, iters=20)
+    eager_ms = time_ms(torch, eager, iters=5)
+    row |= {"graph_ms": graph_ms, "eager_ms": eager_ms}
+    log(f"[continuous] paged step, {S} slots at full occupancy: graph replay "
+        f"{graph_ms:.3f} ms, eager {eager_ms:.3f} ms (CUDA events), replay "
+        f"bit-equal to the eager step; captured {eng.trace_count}x in "
+        f"{st.capture_s:.3f} s, graph pool {st.pool_bytes / 2**20:.1f} MiB")
+    out["main"] = row
+    del eng, st, caches, got, want
+    release(torch)
+
+    # 2. SLO preemption with the whole control plane ----------------------
+    trace_dir = ROOT / "build" / "continuous_trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    book = ClassBook.parse("gold:1e9@250ms,batch:1e9")
+    hp = HealthPlane(book, postmortem_dir=trace_dir / "pm", tag="continuous")
+    prof2 = make_profile("spike", ticks=6, per_tick=5, prompt_len=sp, gen_len=sg,
+                         class_mix=(("gold", 0.4), ("batch", 0.6)),
+                         prompt_dist=("uniform", 3, sp))
+    eng = engine(4, sp, sg, ps)
+    obs_trace.configure(trace_dir, process_tag="continuous")
+    try:
+        tel = eng.serve(prof2, scheduler=ClassScheduler(book, ladder, shadow_every=4),
+                        controller=QoSController(ladder, ControllerConfig(
+                            target_ms_per_step=50.0, drift_budget=1e9,
+                            shadow_every=4)),
+                        telemetry=Telemetry(), seed=1, steps_per_tick=5, health=hp,
+                        log=lambda m: log(f"[continuous] slo: {m}"))
+    finally:
+        obs_trace.reset(clear_env=True)
+        _ledgers.clear()
+    captured_once("slo", eng)
+    s = tel.summary()
+    require(eng.preemption_count >= 1, "the SLO serve never preempted")
+    tls = build_timelines(obs_trace.read_trace(trace_dir))
+    broken = {t.rid: t.problems for t in tls.values() if not t.complete}
+    require(len(tls) == prof2.total_requests and not broken,
+            f"req.* chains: {len(tls)} of {prof2.total_requests}, broken {broken}")
+    records = read_ledger(trace_dir)
+    aud = audit(records)
+    require(aud["n_complete"] == aud["n_done"] == prof2.total_requests
+            and aud["n_failed"] == 0, f"provenance audit {aud['n_complete']} "
+            f"complete of {aud['n_done']} done, {aud['n_failed']} failed")
+    costs = cost_report(records)
+    require(costs["reconciled"] and costs["totals"]["mlp_macs"] > 0,
+            f"cost report: reconciled {costs['reconciled']}, "
+            f"{costs['totals'].get('mlp_macs')} MACs; {costs['problems']}")
+    eng._alloc.check_invariants()
+    require(eng._alloc.used_pages == 0, "the SLO serve kept pages")
+    classes = s["classes"]
+    log(f"[continuous] slo: {len(eng.completions)} requests, {s['steps']} steps, "
+        f"{eng.preemption_count} preemptions, "
+        + "; ".join(f"{n} p95 {r.get('p95_ms_per_step')} ms/step, TTFT p95 "
+                    f"{r.get('p95_ttft_ms')} ms" for n, r in classes.items())
+        + f"; health {hp.report()['state']}, {hp.anomalies_fired} anomalies; "
+          f"{len(tls)} req.* chains complete; provenance gap-free over "
+          f"{aud['n_complete']} requests; costs reconciled, "
+          f"{costs['totals']['mlp_macs']} MLP MACs, {costs['totals']['approx_macs']} "
+          f"approximate, area*MAC saved {costs['totals']['area_mac_saved']}; pages "
+          f"all returned; captured {eng.trace_count}x")
+    out["slo"] = {"summary": s, "preemptions": eng.preemption_count,
+                  "health": hp.report(), "costs_totals": costs["totals"],
+                  "trace_count": eng.trace_count}
+    del eng
+    release(torch)
+
+    # 3. two replicas behind the router -----------------------------------
+    router = ReplicaRouter([
+        Replica("gold-exact", engine(4, sp, sg, ps, level=0), classes=("gold",)),
+        Replica("batch-deep", engine(4, sp, sg, ps, level=len(ladder) - 1),
+                classes=("batch",))])
+    prof3 = steady(3, 2, prompt_len=sp, gen_len=sg,
+                   class_mix=(("gold", 0.5), ("batch", 0.5)))
+    summary = router.serve(prof3, seed=0)
+    per = summary["replicas"]
+    require(summary["requests"] == prof3.total_requests, "router lost requests")
+    require(all(r["trace_count"] == 1 for r in per.values()),
+            f"replica captures {[r['trace_count'] for r in per.values()]}")
+    log("[continuous] router: " + "; ".join(
+        f"{n} routed {r['routed']}, plan {r['plan']}, captured {r['trace_count']}x"
+        for n, r in per.items()))
+    out["router"] = {n: {"routed": r["routed"], "trace_count": r["trace_count"],
+                         "plan": r["plan"]} for n, r in per.items()}
+    del router
+    release(torch)
+
+    # 4a. kernel route against the plain route, at the main serve's 8 rows
+    prof4 = steady(2, 4, prompt_len=sp, gen_len=sg)
+    runs = {}
+    for backend in ("auto", "ref"):
+        e = engine(S, sp, sg, ps, backend=backend)
+        snap = {}
+
+        def keep(e, step, snap=snap):
+            if step == 10:   # both ticks' requests are in their slots
+                rows = [i for i, _ in e._pool]
+                snap["logits"] = e.static_step.logits[rows].clone()
+
+        e.serve(prof4, telemetry=Telemetry(), seed=0, on_step_end=keep)
+        captured_once(f"exactness {backend}", e)
+        runs[backend] = (completions(e), snap["logits"])
+        del e
+        release(torch)
+    require(len(runs["auto"][1]) == S, f"step 10 held {len(runs['auto'][1])} "
+            f"requests, not {S}")
+    require(runs["auto"][0] == runs["ref"][0],
+            "continuous W4A4 completions differ between kernel and plain route")
+    require(torch.equal(runs["auto"][1], runs["ref"][1]),
+            "a continuous step's logits differ between kernel and plain route")
+    log(f"[continuous] exactness: W4A4 kernel route and plain route at {S} slots, "
+        f"{len(runs['auto'][0])} requests: completions identical, step 10's logits "
+        f"of all {S} rows bit-equal")
+
+    # 4b. paged decode against dense decode (serving/staggered.py), both
+    # steps captured at 3 rows
+    rng = np.random.default_rng(1)
+    stack = ladder.luts(1)
+    total = 2 * ps
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+               for n in (12, 7)]
+    dense = ServingEngine(cfg4, params, batch=3, prompt_len=ps, gen_len=ps,
+                          luts=stack, device=dev)
+    dst = dense.static_step
+
+    def dense_step(tok, t):
+        dst.tok.zero_()
+        dst.tok[0, 0] = tok
+        dst.pos.fill_(t)
+        return dst.replay()[0]
+
+    refs = []
+    for p in prompts:
+        dst.reset()
+        refs.append(decode_alone(dense_step, p, total))
+    require(dense.trace_count == 1, "the dense step was captured more than once")
+    paged = engine(3, ps, ps, ps, luts=stack)
+    paged.start()
+    pst = paged.static_step
+
+    def paged_step(*inputs):
+        pst.write(*inputs)
+        return pst.replay()
+
+    pouts, prows = decode_staggered(paged_step, prompts, [0, 3], slots=3,
+                                    total=total, page_size=ps, n_pages=paged.n_pages)
+    require(pouts == [r[0] for r in refs],
+            "paged decode's tokens differ from the dense step's")
+    require(paged.trace_count == 1, "the paged step was captured more than once")
+    dmax = max(float((x - y).abs().max())
+               for (_, ref_rows), rows in zip(refs, prows)
+               for x, y in zip(ref_rows, rows))
+    log(f"[continuous] exactness: two requests staggered into a 3-slot paged pool "
+        f"against each decoded alone through the fixed engine's dense step at batch "
+        f"3: tokens identical ({len(pouts[0])} + {len(pouts[1])}), max |dlogit| {dmax:.4g}")
+    out["paged_vs_dense_max_dlogit"] = dmax
+    del dense, dst, paged, pst, refs, prows
+    release(torch)
+
+    # 4c. a preempting run against a non-preempting one, every level exact:
+    # the completions, and the logits row of every generated token but a
+    # request's last (the row is gone from the pool when it completes)
+    prof5 = make_profile("spike", ticks=6, per_tick=5, prompt_len=sp, gen_len=sg,
+                         class_mix=(("gold", 0.4), ("batch", 0.6)),
+                         prompt_dist=("uniform", 3, sp))
+    pre = {}
+    for spec in ("gold:1e-12@250ms,batch:1e-12", "gold:1e-12,batch:1e-12"):
+        e = engine(2, sp, sg, ps)
+        seen, resumed = {}, set()
+
+        def keep(e, _, seen=seen, resumed=resumed):
+            for i, seq in e._pool:
+                if seq.generated:
+                    seen[(seq.rid, seq.pos)] = e.static_step.logits[i].clone()
+                    if seq.preempted:
+                        resumed.add((seq.rid, seq.pos))
+
+        e.serve(prof5, scheduler=ClassScheduler(ClassBook.parse(spec), ladder,
+                                                shadow_every=4),
+                telemetry=Telemetry(), seed=1, steps_per_tick=5, on_step_end=keep)
+        captured_once("preemption exactness", e)
+        pre[spec] = (e.preemption_count, completions(e), seen, resumed)
+        del e
+        release(torch)
+    (n_pre, with_pre, seen_pre, resumed), (n_none, without, seen_none, _) = pre.values()
+    require(n_pre >= 1 and n_none == 0, f"preemptions {n_pre} and {n_none}, "
+            f"need >= 1 and 0")
+    require(with_pre == without, "a preempted request's tokens differ from the "
+            "non-preempting run's at the same max_slots")
+    require(resumed, "no generated token of a resumed request was seen")
+    require(seen_pre.keys() == seen_none.keys()
+            and all(torch.equal(seen_pre[k], seen_none[k]) for k in seen_pre),
+            "a generated token's logits differ between the preempting and the "
+            "non-preempting run")
+    log(f"[continuous] exactness: {n_pre} preemptions at 2 slots, every level "
+        f"exact: all {len(with_pre)} completions identical to a run at 2 slots "
+        f"that never preempts, and {len(seen_pre)} generated tokens' logits "
+        f"bit-equal, {len(resumed)} of them after a resume")
+    del pre, seen_pre, seen_none
+    release(torch)
+
+    # 5. W8A8, kernel against plain ---------------------------------------
+    _, w8 = stacks(L)
+    cfg8 = cfg.with_approx_mlp(8)
+    prof6 = steady(1, 4, prompt_len=sp, gen_len=sg)
+    runs8 = {}
+    for backend in ("auto", "ref"):
+        e = engine(4, sp, sg, ps, cfg_=cfg8, luts=w8, backend=backend)
+        snap = {}
+
+        def keep(e, step, snap=snap):
+            if step == 3:   # all four requests are in their slots
+                rows = [i for i, _ in e._pool]
+                snap["logits"] = e.static_step.logits[rows].clone()
+
+        if backend == "auto":
+            reset_counts()
+        e.serve(prof6, telemetry=Telemetry(), seed=0, on_step_end=keep)
+        torch.cuda.synchronize()
+        st = captured_once(f"W8A8 {backend}", e)
+        if backend == "auto":
+            counts = read_counts()
+            c8 = counts["approx_matmul_w8"]
+            require(c8 > 0, "the W8A8 continuous serve launched no approx_matmul_w8")
+            require(st.launches_per_replay == {"approx_matmul_w8": 3 * L},
+                    f"W8A8 launches a replay {st.launches_per_replay}")
+            credit(results, "continuous W8A8 serve", counts, "approx_matmul_w8")
+        runs8[backend] = (completions(e), snap["logits"])
+        del e, st
+        release(torch)
+    require(runs8["auto"][0] == runs8["ref"][0],
+            "continuous W8A8 completions differ between kernel and plain route")
+    require(torch.equal(runs8["auto"][1], runs8["ref"][1]),
+            "a continuous W8A8 step's logits differ between kernel and plain route")
+    log(f"[continuous] W8A8: {len(runs8['auto'][0])} requests, kernel route and "
+        f"plain route completions identical, step 3's logits bit-equal; "
+        f"approx_matmul_w8 launches {c8} ({3 * L} a replay)")
+    out["w8_launches"] = c8
+
+
+
+# ---------------------------------------------------------------------------
 # phases 4-6: the main paths at full width
 # ---------------------------------------------------------------------------
+def credit(results: dict, path: str, counts: dict, *names: str) -> None:
+    """Add one main path's launches of the kernels ``names`` to each
+    kernel's total for the kernels line, and keep them per path."""
+    for n in names:
+        results["launches"][n] = results["launches"].get(n, 0) + counts[n]
+        results["launches_by_path"].setdefault(n, {})[path] = counts[n]
+
+
 def reset_counts() -> None:
     from repro_torch.kernels import approx_matmul as am
     from repro_torch.kernels import flash_attention as fa
@@ -1459,7 +1866,7 @@ def phase_serve(torch, cfg, params, results: dict) -> None:
     reset_counts()
     tel = eng.serve(profile, seed=0)
     counts = read_counts()
-    results["launches"]["approx_matmul_w4"] = counts["approx_matmul_w4"]
+    credit(results, "fixed serve", counts, "approx_matmul_w4")
     require(counts["approx_matmul_w4"] > 0, "W4A4 serve launched no approx_matmul_w4")
     require(counts["flash_attention"] == 0, "decode ran the flash kernel")
     per_step = 3 * cfg.n_layers
@@ -1493,7 +1900,7 @@ def phase_serve(torch, cfg, params, results: dict) -> None:
     reset_counts()
     s8 = eng8.run_batch(last)
     counts = read_counts()
-    results["launches"]["approx_matmul_w8"] = counts["approx_matmul_w8"]
+    credit(results, "fixed W8A8 batch", counts, "approx_matmul_w8")
     require(counts["approx_matmul_w8"] > 0, "W8A8 serve launched no approx_matmul_w8")
     t8 = eng8.last_tokens
     require(t8.shape == (4, 16) and (t8 < cfg.vocab_size).all(), "bad W8A8 tokens")
@@ -1606,7 +2013,7 @@ def phase_forward(torch, cfg, params, results: dict) -> None:
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     counts = read_counts()
-    results["launches"]["flash_attention"] = counts["flash_attention"]
+    credit(results, "forward_lm", counts, "flash_attention")
     require(counts["flash_attention"] == cfg.n_layers,
             f"flash launches {counts['flash_attention']} != {cfg.n_layers}")
     require(counts["approx_matmul_w4"] == 3 * cfg.n_layers,
@@ -1647,7 +2054,7 @@ def main() -> int:
     from repro_torch.models import init_model
 
     t_start = time.perf_counter()
-    results: dict = {"max_err": {}, "launches": {}}
+    results: dict = {"max_err": {}, "launches": {}, "launches_by_path": {}}
     log(f"[env] python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"cuda {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     results["build"] = phase_build()
@@ -1665,6 +2072,7 @@ def main() -> int:
     phases = [("search serve", lambda: phase_search_serve(torch, cfg, params, library, results)),
               ("plans", lambda: phase_plans(torch, cfg, params, library, results)),
               ("control", lambda: phase_control(torch, cfg, params, library, results)),
+              ("continuous", lambda: phase_continuous(torch, cfg, params, library, results)),
               ("serve", lambda: phase_serve(torch, cfg, params, results)),
               ("forward", lambda: phase_forward(torch, cfg, params, results))]
     for name, run in phases:
@@ -1688,10 +2096,12 @@ def main() -> int:
                                  "src/repro/kernels/template_eval.py:30")}
     kernels = []
     for name, (src, replaces) in sources.items():
-        t = next(r for r in results["timings"] if r["name"] == name)
+        t = next(r for r in results["timings"] if r["name"] == name
+                 and r["shape"] == LINE_SHAPES.get(name, r["shape"]))
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
                         "launches": results["launches"][name],
+                        "launches_by_path": results["launches_by_path"][name],
                         "max_abs_err": results["max_err"][name],
                         "ms": t["ms"], "plain_ms": t["plain_ms"],
                         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

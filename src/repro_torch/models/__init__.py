@@ -1,4 +1,5 @@
-"""Model API of the port: init / forward / decode for the dense family."""
+"""Model API of the port: init / forward / decode (dense and paged) for
+the dense family."""
 
 from __future__ import annotations
 
@@ -22,5 +23,17 @@ def decode_fn(cfg: ModelConfig):
     return lm.decode_step
 
 
+def init_paged_caches(cfg: ModelConfig, batch: int, n_pages: int,
+                      page_size: int, max_len: int, *, device="cuda"):
+    """Page-pool decode caches for continuous batching (dense family)."""
+    return lm.init_paged_caches(cfg, batch, n_pages, page_size, max_len,
+                                device=device)
+
+
+def decode_paged_fn(cfg: ModelConfig):
+    """Per-slot-position decode step over paged caches (dense family)."""
+    return lm.decode_step_paged
+
+
 __all__ = ["ModelConfig", "init_model", "forward_fn", "init_caches",
-           "decode_fn"]
+           "decode_fn", "init_paged_caches", "decode_paged_fn"]

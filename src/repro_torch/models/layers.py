@@ -215,6 +215,154 @@ def attention_decode(
 
 
 # ---------------------------------------------------------------------------
+# paged / per-row decode attention (continuous batching)
+#
+# Continuous batching mixes requests at different positions in one step,
+# so these take ``pos`` as a (B,) tensor plus an ``active`` (B,) mask;
+# global-attention KV lives in a shared page pool indexed by per-slot page
+# tables (repro_torch.serving.kvcache).  Caches are written in place with
+# ``index_copy_`` through flat row indices built on the device, so no value
+# on the host depends on ``pos``, ``active`` or ``tables`` and the step can
+# be captured once and replayed across joins, leaves and preemptions.
+# ---------------------------------------------------------------------------
+def _decode_attn_rows(q, k, v, mask, f32_math: bool = True):
+    """Single-token attention with a per-row key mask.
+
+    q (B, 1, H, hd); k/v (B, K, Hkv, hd); mask (B, K) bool -- True where
+    row b may attend to key slot j.  The caller guarantees every row has
+    at least one True (inactive rows see one masked-garbage slot, so the
+    softmax never sees a row of ``-1e30`` only).  GQA repeats KV up to H
+    heads; logits are float32 either way (products of bf16 values are
+    exact in float32), and without ``f32_math`` the probabilities round to
+    ``v.dtype`` first, as in the reference.
+    """
+    H = q.shape[2]
+    out_dtype = q.dtype
+    Hkv = k.shape[2]
+    if Hkv != H:
+        rep = H // Hkv
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    logits = torch.where(mask[:, None, None, :], logits, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    if not f32_math:
+        probs = probs.to(v.dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
+    return out.to(out_dtype)
+
+
+def _rows_rope(x: torch.Tensor, pos: torch.Tensor, head_dim: int,
+               theta: float) -> torch.Tensor:
+    """Per-row rope for single-token decode: x (B, 1, H, hd), pos (B,)."""
+    cos, sin = rope_tables(pos, head_dim, theta)      # (B, hd//2)
+    return apply_rope(x, cos[:, None], sin[:, None])
+
+
+def attention_decode_ring(
+    cfg: ModelConfig,
+    p: Params,
+    x: torch.Tensor,                 # (B, 1, D)
+    cache: dict[str, torch.Tensor],  # {"k","v"}: (B, C, Hkv, hd) per-slot ring
+    pos: torch.Tensor,               # (B,) long: each slot's absolute position
+    active: torch.Tensor,            # (B,) bool
+    window: int,                     # ring capacity == attention window
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Sliding-window decode with per-row positions, the ring written in
+    place.  Slot ``pos % C`` holds the newest token; a slot whose occupant
+    just joined at ``pos=0`` masks out every stale ring entry the previous
+    occupant left behind -- validity is derived from ``pos``, never from
+    what the buffer happens to contain."""
+    B = x.shape[0]
+    q, k_new, v_new = _qkv(cfg, p, x)
+    q = _rows_rope(q, pos, cfg.hd, cfg.rope_theta)
+    k_new = _rows_rope(k_new, pos, cfg.hd, cfg.rope_theta)
+
+    C = cache["k"].shape[1]
+    slot = pos % C
+    rows = torch.arange(B, device=x.device)
+    flat = rows * C + slot
+    for name, new in (("k", k_new), ("v", v_new)):
+        cache[name].view((B * C,) + cache[name].shape[2:]).index_copy_(
+            0, flat, new[:, 0])
+
+    idx = torch.arange(C, device=x.device)[None, :]   # (1, C)
+    pos_c, slot_c = pos[:, None], slot[:, None]
+    # ring slot i holds absolute position in (pos - C, pos]
+    k_pos = torch.where(idx <= slot_c, pos_c - slot_c + idx,
+                        pos_c - slot_c - C + idx)
+    mask = (k_pos >= 0) & (k_pos > pos_c - C - 1)
+    # inactive rows attend to exactly slot 0 (output discarded, but the
+    # softmax must not see an empty row)
+    mask = torch.where(active[:, None], mask, idx == 0)
+    out = _decode_attn_rows(q, cache["k"], cache["v"], mask,
+                            f32_math=cfg.attn_f32)
+    out = linear(out.reshape(B, 1, -1), p["wo"])
+    return out, cache
+
+
+def _paged_write(pool: torch.Tensor, new_row: torch.Tensor, pos: torch.Tensor,
+                 tables: torch.Tensor) -> None:
+    """Write one new row a slot into the shared page pool, in place.
+
+    pool (P+1, page_size, ...); new_row (B, ...); pos (B,) long; tables
+    (B, T) long physical page ids.  Inactive slots carry all-scratch
+    tables and ``pos=0``, so their writes all land on the scratch page's
+    row 0.  ``index_copy_`` with duplicate indices is nondeterministic on
+    CUDA (which duplicate wins is unspecified); that is harmless only
+    because the scratch page is never read unmasked: an active row's
+    table points there past its allocation, where ``j <= pos`` masks it,
+    and an inactive row's output is discarded.
+    """
+    page_size = pool.shape[1]
+    page = tables.gather(1, (pos // page_size)[:, None])[:, 0]
+    flat = page * page_size + pos % page_size
+    pool.view((-1,) + pool.shape[2:]).index_copy_(0, flat, new_row)
+
+
+def _paged_read(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """Gather each slot's pages back into a contiguous per-slot view:
+    pool (P+1, page_size, ...) + tables (B, T) -> (B, T*page_size, ...)."""
+    B, T = tables.shape
+    v = pool.index_select(0, tables.reshape(-1))      # (B*T, page_size, ...)
+    return v.reshape((B, T * pool.shape[1]) + pool.shape[2:])
+
+
+def attention_decode_paged(
+    cfg: ModelConfig,
+    p: Params,
+    x: torch.Tensor,                 # (B, 1, D)
+    cache: dict[str, torch.Tensor],  # {"kp","vp"}: (P+1, page_size, Hkv, hd)
+    pos: torch.Tensor,               # (B,) long
+    tables: torch.Tensor,            # (B, T) long physical page ids
+    active: torch.Tensor,            # (B,) bool
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Global-attention decode over the shared page pool.  Each slot
+    writes its new KV at ``table[pos // page_size], pos % page_size`` and
+    attends over the gathered view of its own pages; positions a request
+    has not written yet (stale KV from a freed request included) are
+    masked by ``j <= pos``, and every table entry past a request's
+    allocation is the scratch page, so page reuse needs no zeroing."""
+    B = x.shape[0]
+    q, k_new, v_new = _qkv(cfg, p, x)
+    q = _rows_rope(q, pos, cfg.hd, cfg.rope_theta)
+    k_new = _rows_rope(k_new, pos, cfg.hd, cfg.rope_theta)
+
+    _paged_write(cache["kp"], k_new[:, 0], pos, tables)
+    _paged_write(cache["vp"], v_new[:, 0], pos, tables)
+
+    k = _paged_read(cache["kp"], tables)              # (B, K, Hkv, hd)
+    v = _paged_read(cache["vp"], tables)
+    idx = torch.arange(k.shape[1], device=x.device)[None, :]   # logical positions
+    mask = idx <= pos[:, None]
+    mask = torch.where(active[:, None], mask, idx == 0)
+    out = _decode_attn_rows(q, k, v, mask, f32_math=cfg.attn_f32)
+    out = linear(out.reshape(B, 1, -1), p["wo"])
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
 # dense FFN (SwiGLU)
 # ---------------------------------------------------------------------------
 def init_ffn(cfg: ModelConfig, gen: torch.Generator) -> Params:

@@ -196,33 +196,131 @@ def decode_step(
     a W8A8 stack checked for composition) by the caller, as
     :class:`repro_torch.serving.engine.ServingEngine` does once per stack.
     """
+    layers = _decode_layers(cfg, luts, width_map, "decode_step")
+    pos = L.decode_position(pos, params["embed"].device)
+    x = params["embed"][tokens.long()].to(cfg.torch_dtype)
+    for (w, lut_i), lp, cache in zip(layers, params["layers"], caches):
+        x = _block_decode(cfg, lp, x, cache, pos, w, lut_i, backend)
+    return _head(cfg, params, x)[:, 0], caches
+
+
+def _decode_layers(cfg: ModelConfig, luts, width_map, caller: str) -> list:
+    """Each layer's ``(window, table)`` for a decode step: the window is
+    ``None`` (global) or an int, the table the layer's own from a stack, a
+    shared table or a mixed-width dict (layer ``i`` reads
+    ``luts[width_map[i]]`` at its position among the layers of that
+    width), or ``None`` without an approximate MLP."""
     _check_family(cfg)
     win = window_schedule(cfg)
     luts_ = luts if cfg.approx_mlp else None
     leaves = luts_.values() if isinstance(luts_, dict) else (luts_,)
     if any(v is not None and not isinstance(v, torch.Tensor) for v in leaves):
-        raise TypeError("decode_step luts must be tensors on the model's "
+        raise TypeError(f"{caller} luts must be tensors on the model's "
                         "device; the engine moves a stack there once")
-    group_pos: list[int] | None = None
-    if isinstance(luts_, dict):
-        if width_map is None or len(width_map) != cfg.n_layers:
-            raise ValueError(
-                f"a mixed-width luts dict needs a width_map with one entry "
-                f"per layer (got {width_map!r} for {cfg.n_layers} layers)")
-        group_pos = [width_map[:i].count(width_map[i])
-                     for i in range(cfg.n_layers)]
-    pos = L.decode_position(pos, params["embed"].device)
-    x = params["embed"][tokens.long()].to(cfg.torch_dtype)
-    for i, (lp, cache) in enumerate(zip(params["layers"], caches)):
+    if isinstance(luts_, dict) and (width_map is None
+                                    or len(width_map) != cfg.n_layers):
+        raise ValueError(
+            f"a mixed-width luts dict needs a width_map with one entry "
+            f"per layer (got {width_map!r} for {cfg.n_layers} layers)")
+    out = []
+    for i in range(cfg.n_layers):
         if isinstance(win, np.ndarray):
-            w = int(win[i])
-            w = None if w < 0 else w
+            w = None if win[i] < 0 else int(win[i])
         else:
             w = win
-        lut_i = None
         if isinstance(luts_, dict):
-            lut_i = luts_[width_map[i]][group_pos[i]]
+            lut_i = luts_[width_map[i]][width_map[:i].count(width_map[i])]
         elif luts_ is not None:
             lut_i = luts_[i] if luts_.ndim == 3 else luts_
-        x = _block_decode(cfg, lp, x, cache, pos, w, lut_i, backend)
+        else:
+            lut_i = None
+        out.append((w, lut_i))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# paged decode: per-slot positions, shared page pools (continuous batching)
+# ---------------------------------------------------------------------------
+def init_paged_caches(cfg: ModelConfig, batch: int, n_pages: int,
+                      page_size: int, max_len: int, *,
+                      device: str | torch.device = "cuda") -> list[Params]:
+    """Decode caches for continuous batching: global-attention layers
+    share one ``(n_pages + 1, page_size, Hkv, hd)`` page pool each
+    (``"kp"``, ``"vp"``; physical page 0 is the allocator's scratch page),
+    sliding-window layers keep a small per-slot ring (``"k"``, ``"v"``:
+    ``(batch, min(window, max_len), Hkv, hd)``; their cache is already
+    bounded by the window).  Families other than the dense one are
+    refused, as the reference refuses recurrent state, which has no
+    positional cache to page."""
+    if cfg.family != "dense":
+        raise ValueError(
+            f"{cfg.name}: continuous batching pages the KV caches of the "
+            f"dense family; family {cfg.family!r} is not ported")
+    dev = resolve_device(device)
+    win = window_schedule(cfg)
+    dt = cfg.torch_dtype
+    caches: list[Params] = []
+    for layer in range(cfg.n_layers):
+        w = (int(win[layer]) if isinstance(win, np.ndarray)
+             else win if isinstance(win, int) else -1)
+        if w > 0:
+            shape = (batch, min(w, max_len), cfg.n_kv_heads, cfg.hd)
+            caches.append({"k": torch.zeros(shape, dtype=dt, device=dev),
+                           "v": torch.zeros(shape, dtype=dt, device=dev)})
+        else:
+            shape = (n_pages + 1, page_size, cfg.n_kv_heads, cfg.hd)
+            caches.append({"kp": torch.zeros(shape, dtype=dt, device=dev),
+                           "vp": torch.zeros(shape, dtype=dt, device=dev)})
+    return caches
+
+
+def _block_decode_paged(cfg: ModelConfig, lp: Params, x, cache: Params, pos,
+                        tables, active, window, lut=None,
+                        backend: ops.Backend = "auto"):
+    h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+    if "kp" in cache:
+        attn_out, _ = L.attention_decode_paged(cfg, lp["attn"], h, cache, pos,
+                                               tables, active)
+    else:
+        attn_out, _ = L.attention_decode_ring(cfg, lp["attn"], h, cache, pos,
+                                              active, window)
+    x = x + attn_out
+    h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
+    return x + L.ffn(cfg, lp["ffn"], h, lut, backend=backend)
+
+
+def decode_step_paged(
+    cfg: ModelConfig,
+    params: Params,
+    caches: list[Params],
+    tokens: torch.Tensor,   # (B, 1) int -- each slot's newest token
+    pos: torch.Tensor,      # (B,) long -- per-slot absolute positions
+    active: torch.Tensor,   # (B,) bool -- which slots hold a live request
+    tables: torch.Tensor,   # (B, T) long -- per-slot physical page tables
+    *,
+    luts: torch.Tensor | dict[int, torch.Tensor] | None = None,
+    width_map: tuple[int, ...] | None = None,
+    backend: ops.Backend = "auto",
+) -> tuple[torch.Tensor, list[Params]]:
+    """One continuous-batching step: every active slot advances one token
+    at its own position; inactive slots compute padding rows whose cache
+    writes land on the scratch page (page 0) and whose logits the host
+    discards.  Caches are written in place; returns (logits (B, V)
+    float32, caches).
+
+    This is :func:`decode_step` with the batch-shared position replaced
+    by per-slot tensors and the dense global-attention caches by page
+    pools (:func:`init_paged_caches`).  ``pos``, ``active`` and ``tables``
+    are tensors on the model's device, and no value on the host depends
+    on them, so the step is captured once as a CUDA graph and replayed
+    while requests join, leave and are preempted
+    (:class:`repro_torch.serving.engine.PagedStaticStep`).  ``luts`` and
+    ``width_map`` are :func:`decode_step`'s.
+    """
+    layers = _decode_layers(cfg, luts, width_map, "decode_step_paged")
+    pos, tables = pos.long(), tables.long()
+    x = params["embed"][tokens.long()].to(cfg.torch_dtype)
+    for (w, lut_i), lp, cache in zip(layers, params["layers"], caches):
+        x = _block_decode_paged(cfg, lp, x, cache, pos, tables, active, w,
+                                lut_i, backend)
     return _head(cfg, params, x)[:, 0], caches

@@ -41,6 +41,14 @@ the exact stack, on the same caches saved before and restored after; the
 mean |Δlogit| between the live and shadow step is the drift the
 controller holds under its budget.  Its time is excluded from
 ``decode_s``.
+
+**Continuous batching.**  :class:`ContinuousServingEngine` decodes
+token-at-a-time over a fixed pool of slots, requests joining and leaving
+per step, KV in a paged pool, SLO classes preempting lower tiers.  Its
+step is a :class:`PagedStaticStep`: the same capture over per-slot
+positions, an active mask and page tables, copied in from the host each
+step.  Both engines mirror every swap, refresh and control move into an
+SLO health plane when one is given.
 """
 
 from __future__ import annotations
@@ -55,10 +63,11 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import ops
-from ..library.qos import (LayerPlan, refresh_plan, stack_luts,
-                           validate_lut_stack)
-from ..models import decode_fn, init_caches
+from ..library.qos import (LayerPlan, plan_layer_areas, refresh_plan,
+                           stack_luts, validate_lut_stack)
+from ..models import decode_fn, decode_paged_fn, init_caches, init_paged_caches
 from ..models.lm import check_device, to_device_luts
+from ..obs.trace import current_tracer
 from ..obs.trace import event as trace_event
 from ..obs.trace import span as trace_span
 from ..precision.widths import exact_table, width_from_stack
@@ -66,7 +75,8 @@ from .controller import effective_load_ms
 from .loadgen import LoadProfile, Request, synth_requests
 from .telemetry import Telemetry
 
-__all__ = ["BatchStats", "ServingEngine", "StaticStep"]
+__all__ = ["BatchStats", "ContinuousServingEngine", "PagedStaticStep",
+           "ServingEngine", "StaticStep"]
 
 # warm-up runs of the step before its capture, on a side stream: the
 # kernels' first calls load the library and set their launch attributes,
@@ -151,13 +161,6 @@ class StaticStep:
         self.tok = torch.zeros((batch, 1), dtype=torch.int32, device=device)
         self.pos = torch.zeros((1,), dtype=torch.long, device=device)
         self.caches = init_caches(cfg, batch, total, device=device)
-        self.luts = (None if luts is None else
-                     {b: t.clone() for b, t in luts.items()}
-                     if isinstance(luts, dict) else luts.clone())
-        self._saved = None          # cache copies for the shadow step
-        self.replays = 0
-        self.capture_s = 0.0
-        self.pool_bytes = 0
         step = decode_fn(cfg)
 
         def run() -> torch.Tensor:
@@ -165,14 +168,27 @@ class StaticStep:
                         luts=self.luts, width_map=width_map,
                         backend=backend)[0]
 
+        self._build(run, luts, (batch, cfg.vocab_size))
+
+    def _build(self, run: Callable[[], torch.Tensor], luts,
+               logits_shape: tuple[int, int]) -> None:
+        """Own a copy of ``luts``, then capture ``run`` (on a card) or
+        keep it to run eagerly (on the CPU)."""
+        self.luts = (None if luts is None else
+                     {b: t.clone() for b, t in luts.items()}
+                     if isinstance(luts, dict) else luts.clone())
+        self._saved = None          # cache copies for the shadow step
+        self.replays = 0
+        self.capture_s = 0.0
+        self.pool_bytes = 0
         self._graph = None
         self._credits: list[tuple[Callable, int]] = []
-        if device.type == "cuda":
+        if self.device.type == "cuda":
             self._capture(run)
         else:
             self._run = run
-            self.logits = torch.zeros((batch, cfg.vocab_size),
-                                      dtype=torch.float32, device=device)
+            self.logits = torch.zeros(logits_shape, dtype=torch.float32,
+                                      device=self.device)
 
     def _capture(self, run) -> None:
         torch.cuda.synchronize(self.device)
@@ -228,21 +244,74 @@ class StaticStep:
     def reset(self) -> None:
         """Zero the caches in place, as a fresh batch needs them."""
         for c in self.caches:
-            c["k"].zero_()
-            c["v"].zero_()
+            for buf in c.values():
+                buf.zero_()
 
     def save_caches(self) -> None:
+        """Copy every cache tensor (rings and page pools alike) into a
+        copy allocated on first use and reused after."""
         if self._saved is None:
             self._saved = [{k: torch.empty_like(v) for k, v in c.items()}
                            for c in self.caches]
         for dst, src in zip(self._saved, self.caches):
-            dst["k"].copy_(src["k"])
-            dst["v"].copy_(src["v"])
+            for k, buf in src.items():
+                dst[k].copy_(buf)
 
     def restore_caches(self) -> None:
         for dst, src in zip(self.caches, self._saved):
-            dst["k"].copy_(src["k"])
-            dst["v"].copy_(src["v"])
+            for k, buf in src.items():
+                dst[k].copy_(buf)
+
+
+class PagedStaticStep(StaticStep):
+    """The continuous engine's decode step over fixed buffers: ``tok``
+    ``(S, 1)`` int32, ``pos`` ``(S,)`` long, ``active`` ``(S,)`` bool,
+    ``tables`` ``(S, T)`` long, ``caches`` (:func:`repro_torch.models.init_paged_caches`:
+    a page pool ``{"kp", "vp"}`` per global layer, a per-slot ring
+    ``{"k", "v"}`` per windowed one), ``luts`` and ``logits`` ``(S, V)``.
+
+    Captured once on a card and run eagerly on the CPU, as
+    :class:`StaticStep`.  Each step the host writes its numpy inputs with
+    :meth:`write`, through staging buffers of its own (page-locked on a
+    card, so the copies are asynchronous): joins, leaves, preemptions,
+    plan swaps and class stacks change buffer contents, never an address
+    the graph recorded.
+    """
+
+    def __init__(self, cfg, params, *, slots: int, n_pages: int,
+                 page_size: int, table_entries: int, total: int, luts,
+                 width_map, backend: ops.Backend,
+                 device: torch.device) -> None:
+        self.device = device
+        self.tok = torch.zeros((slots, 1), dtype=torch.int32, device=device)
+        self.pos = torch.zeros((slots,), dtype=torch.long, device=device)
+        self.active = torch.zeros((slots,), dtype=torch.bool, device=device)
+        self.tables = torch.zeros((slots, table_entries), dtype=torch.long,
+                                  device=device)
+        self.caches = init_paged_caches(cfg, slots, n_pages, page_size, total,
+                                        device=device)
+        pin = device.type == "cuda"
+        self._inputs = [(buf, torch.zeros(buf.shape, dtype=buf.dtype,
+                                          pin_memory=pin))
+                        for buf in (self.tok, self.pos, self.active,
+                                    self.tables)]
+        step = decode_paged_fn(cfg)
+
+        def run() -> torch.Tensor:
+            return step(cfg, params, self.caches, self.tok, self.pos,
+                        self.active, self.tables, luts=self.luts,
+                        width_map=width_map, backend=backend)[0]
+
+        self._build(run, luts, (slots, cfg.vocab_size))
+
+    def write(self, tok: np.ndarray, pos: np.ndarray, active: np.ndarray,
+              tables: np.ndarray) -> None:
+        """Copy one step's host inputs into the step's buffers.  The
+        staging buffers are rewritten only after the previous step's
+        argmax was read, so its copies have completed."""
+        for (buf, host), arr in zip(self._inputs, (tok, pos, active, tables)):
+            host.numpy()[...] = arr
+            buf.copy_(host, non_blocking=True)
 
 
 class ServingEngine:
@@ -284,6 +353,16 @@ class ServingEngine:
         self.last_tokens: np.ndarray | None = None   # (n_requests, gen_len)
         self._static: StaticStep | None = None
         self._trace_count = 0
+        # the SLO health plane (obs.health.HealthPlane), bound by serve()
+        # or start(); every control-plane trace event is mirrored into it
+        # so fired anomalies attribute to the swap/refresh/control behind
+        self._health = None
+        # chaos hook: extra seconds slept inside the timed step section of
+        # the continuous engine (the induced-latency-spike drill)
+        self.inject_step_delay = 0.0
+        # per-plan cost rows (obs.costs.plan_cost_row), cached by plan_id
+        self._cost_rows: dict[str, dict] = {}
+        self._macs_per_layer = None
 
         self._adaptive = plan is not None
         self._plan = plan
@@ -359,12 +438,15 @@ class ServingEngine:
     def static_step(self) -> StaticStep:
         """The captured step, built (warmed up and captured) on first use."""
         if self._static is None:
-            self._static = StaticStep(
-                self.cfg, self.params, batch=self.batch, total=self.total,
-                luts=self._luts, width_map=self._width_map,
-                backend=self.backend, device=self.device)
+            self._static = self._new_step()
             self._trace_count += 1
         return self._static
+
+    def _new_step(self) -> StaticStep:
+        return StaticStep(
+            self.cfg, self.params, batch=self.batch, total=self.total,
+            luts=self._luts, width_map=self._width_map,
+            backend=self.backend, device=self.device)
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -423,14 +505,19 @@ class ServingEngine:
             telemetry.register_plan(plan)
             telemetry.record_swap(batch=batch_idx, reason=reason,
                                   old=old_id, new=plan.plan_id)
-        trace_event("serve.swap", reason=reason, batch=batch_idx,
-                    old=old_id, new=plan.plan_id)
+        eid = trace_event("serve.swap", reason=reason, batch=batch_idx,
+                          old=old_id, new=plan.plan_id)
+        if self._health is not None:
+            self._health.note_event("serve.swap", step=batch_idx,
+                                    event_id=eid, reason=reason,
+                                    old=old_id, new=plan.plan_id)
         return True
 
     def _set_frontier(self, compiled) -> None:
         self._compiled = list(compiled)
         self._mae_by_key = {rec.key: comp.mae for rec, comp in self._compiled}
         self._area_hi_by_key = _area_hi_map(self._compiled)
+        self._cost_rows = {}
 
     def refresh_library(self, compiled, exact_area: float, *,
                         controller=None, scheduler=None,
@@ -655,17 +742,15 @@ class ServingEngine:
         every batch the control plane runs: watcher poll (library
         refresh), per-class drift bookkeeping, online sensitivity update,
         controller observe (global level move), then the optional
-        ``on_batch_end`` hook.  ``health`` (the reference's SLO health
-        plane) is not ported yet and raises."""
-        if health is not None:
-            raise NotImplementedError(
-                "the SLO health plane (obs/health) is not ported to PyTorch "
-                "yet; ROADMAP.md §1 item 2")
+        ``on_batch_end`` hook.  A ``health`` plane
+        (:class:`repro_torch.obs.health.HealthPlane`) observes every
+        batch and mirrors every swap, refresh and control move."""
         if (profile.prompt_len, profile.gen_len) != (self.prompt_len, self.gen_len):
             raise ValueError("profile geometry differs from the engine's")
         if scheduler is not None and not self._adaptive:
             raise ValueError("class-aware serving needs a QoS plan")
         telemetry = telemetry or Telemetry()
+        self._health = health
         if self._adaptive:
             telemetry.register_plan(self._plan)
         per_tick = synth_requests(profile, self.cfg.vocab_size, seed)
@@ -747,6 +832,15 @@ class ServingEngine:
                         scheduler.observe(cls, stats.drift)
                     if online is not None:
                         online.update(self._plan_maes(plan_b), stats.drift)
+                if health is not None:
+                    health.observe_step(
+                        step=batch_idx, step_ms=stats.ms_per_step,
+                        classes={cls: {}} if cls is not None else {},
+                        drift=stats.drift, backlog=backlog,
+                        plan_id=plan_b.plan_id if self._adaptive else None,
+                        level=glevel,
+                        class_state=(scheduler.snapshot(glevel)
+                                     if scheduler is not None else None))
 
                 # ---- between-batch control plane ------------------------
                 if watcher is not None and self._adaptive and watcher.poll():
@@ -773,7 +867,7 @@ class ServingEngine:
         return telemetry
 
     def _watch(self, watcher, controller, scheduler, telemetry, batch_idx,
-               log) -> None:
+               log, unit: str = "batch") -> None:
         """The watcher saw the store change: refresh the frontier.  A
         store that lost its multipliers (LookupError) or a refreshed stack
         that would not fit the live buffers (ValueError) skips the
@@ -790,10 +884,13 @@ class ServingEngine:
                     compiled, exact_area, controller=controller,
                     scheduler=scheduler, telemetry=telemetry,
                     batch_idx=batch_idx)
-            trace_event("serve.refresh", cause="watcher", changed=changed,
-                        batch=batch_idx)
+            eid = trace_event("serve.refresh", cause="watcher",
+                              changed=changed, batch=batch_idx)
+            if self._health is not None:
+                self._health.note_event("serve.refresh", step=batch_idx,
+                                        event_id=eid, changed=changed)
             if changed and log:
-                log(f"batch {batch_idx}: library refresh -> plan "
+                log(f"{unit} {batch_idx}: library refresh -> plan "
                     f"{self._plan.plan_id}")
         except (LookupError, ValueError) as e:
             trace_event("serve.refresh", cause="watcher", changed=False,
@@ -802,19 +899,23 @@ class ServingEngine:
                 log(f"watcher: refresh skipped ({e})")
 
     def _control(self, controller, scheduler, telemetry, level, glevel,
-                 batch_idx, log) -> None:
+                 batch_idx, log, unit: str = "batch") -> None:
         """The controller moved to ``level``: swap the live plan, or, with
         classes, move the global operating point the class stacks resolve
-        against at their next batch."""
+        against at their next batch (or step)."""
         reason = f"qos-{controller.last_reason}"
-        trace_event("serve.control", level=level,
-                    cause=controller.last_reason, batch=batch_idx)
+        eid = trace_event("serve.control", level=level,
+                          cause=controller.last_reason, batch=batch_idx)
+        if self._health is not None:
+            self._health.note_event("serve.control", step=batch_idx,
+                                    event_id=eid, level=level,
+                                    cause=controller.last_reason)
         if scheduler is None:
             moved = self.swap_plan(controller.plan, controller.luts(),
                                    reason=reason, telemetry=telemetry,
                                    batch_idx=batch_idx)
             if moved and log:
-                log(f"batch {batch_idx}: controller -> level {level} "
+                log(f"{unit} {batch_idx}: controller -> level {level} "
                     f"({controller.last_reason}), plan {self._plan.plan_id}")
             return
         # glevel was read before a possible mid-iteration ladder refresh:
@@ -825,5 +926,624 @@ class ServingEngine:
             old=lad.plan(min(glevel, len(lad) - 1)).plan_id,
             new=lad.plan(min(level, len(lad) - 1)).plan_id)
         if log:
-            log(f"batch {batch_idx}: controller -> global level {level} "
+            log(f"{unit} {batch_idx}: controller -> global level {level} "
                 f"({controller.last_reason})")
+
+
+class ContinuousServingEngine(ServingEngine):
+    """Continuous batching over a fixed pool of decode slots.
+
+    The fixed-batch loop admits requests only at batch boundaries, and
+    every slot reserves a full-length KV cache.  This engine decodes
+    token-at-a-time over ``max_slots`` slots: requests join and leave the
+    running batch per step through an active mask, KV lives in a paged
+    pool (:mod:`repro_torch.serving.kvcache`), and prefill is the first
+    ``len(prompt)-1`` steps of a slot's life through the same step.  The
+    step is a :class:`PagedStaticStep`, captured once on a card: each
+    step's ``tok``, ``pos``, ``active`` and ``tables`` are copied into its
+    buffers, and the stack it decodes on into its stack buffer, so joins,
+    leaves, preemptions and plan swaps never recapture (``trace_count``
+    stays 1).  One device-to-host read a step, the argmax of the logits,
+    ends the timed section.
+
+    Latency SLOs: a :class:`~repro_torch.sensitivity.classes.QoSClass`
+    that declares ``slo_ms`` (``gold:0.02@8ms``) is entitled to a slot --
+    when the pool is full, its arrivals preempt the worst lower-tier slot.
+    The victim keeps its pages (its paged KV survives untouched;
+    sliding-window ring rows are copied aside on the device) and resumes
+    from the head of its class queue, so preemption costs a suspension,
+    never a re-prefill.  Admission drains the class queues weighted-fair
+    (:class:`~repro_torch.serving.slots.WeightedFairQueues`).
+
+    Own copy of the reference's ``ContinuousServingEngine``, whose step
+    returns new caches; here the caches are written in place.
+    """
+
+    # class-level defaults so the provenance/cost bookkeeping helpers stay
+    # drivable on a bare instance (tests exercise them without __init__)
+    replica_name = ""
+    _area_hi_by_key: dict[str, float] = {}
+    _macs_per_layer = None
+
+    def __init__(self, cfg, params, *, max_slots: int, prompt_len: int,
+                 gen_len: int, page_size: int = 8, n_pages: int | None = None,
+                 steps_per_tick: int | None = None, **kw) -> None:
+        if cfg.family != "dense":
+            raise ValueError(f"{cfg.name}: continuous batching serves the "
+                             f"dense family; {cfg.family!r} is not ported")
+        self.max_slots = int(max_slots)
+        self.page_size = int(page_size)
+        total = int(prompt_len) + int(gen_len)
+        pages_per_req = -(-total // self.page_size)
+        # default pool: every slot can hold a worst-case request plus one
+        # spare slot's worth -- preempted victims keep their pages, so
+        # without headroom an SLO arrival into a full pool could never
+        # allocate.  Under-provisioned regimes pass n_pages explicitly.
+        self.n_pages = ((self.max_slots + 1) * pages_per_req
+                        if n_pages is None else int(n_pages))
+        self.table_entries = pages_per_req
+        self.steps_per_tick = (int(steps_per_tick) if steps_per_tick
+                               else max(1, int(gen_len)))
+        # the router stamps its replica name here so every req.* lifecycle
+        # event names the engine that actually served the request
+        self.replica_name = ""
+        super().__init__(cfg, params, batch=max_slots, prompt_len=prompt_len,
+                         gen_len=gen_len, **kw)
+        self._started = False
+
+    def _new_step(self) -> PagedStaticStep:
+        return PagedStaticStep(
+            self.cfg, self.params, slots=self.max_slots,
+            n_pages=self.n_pages, page_size=self.page_size,
+            table_entries=self.table_entries, total=self.total,
+            luts=self._luts, width_map=self._width_map,
+            backend=self.backend, device=self.device)
+
+    def run_batch(self, requests, *, shadow=False, luts=None):
+        raise TypeError("the continuous engine serves through serve(), or "
+                        "start(), submit() and step_once()")
+
+    # ----------------------------------------------------------------- state
+    @property
+    def occupancy(self) -> float:
+        return self._pool.occupancy if self._started else 0.0
+
+    @property
+    def queue_depth(self) -> int:
+        return self._queues.depth if self._started else 0
+
+    @property
+    def idle(self) -> bool:
+        return (not self._started
+                or (self._pool.n_active == 0 and self._queues.depth == 0))
+
+    @property
+    def load_score(self) -> float:
+        """Router's routing signal: active + queued work per slot."""
+        if not self._started:
+            return 0.0
+        return (self._pool.n_active + self._queues.depth) / self.max_slots
+
+    @property
+    def preemption_count(self) -> int:
+        return self._n_preemptions
+
+    # ----------------------------------------------------------------- setup
+    def start(self, *, telemetry: Telemetry | None = None, controller=None,
+              watcher=None, scheduler=None, online=None,
+              shadow_every: int | None = None, health=None, provenance=None,
+              log: Callable[[str], None] | None = None) -> Telemetry:
+        """Bind the control plane and reset all serving state (slots,
+        pages, queues, caches).  Callable directly (the router drives
+        replicas through ``submit``/``step_once``) or via :meth:`serve`.
+        The step is captured here on first use; later starts zero its
+        caches in place."""
+        from ..obs.costs import mlp_macs_per_layer
+        from .kvcache import PageAllocator
+        from .slots import SlotPool, WeightedFairQueues
+
+        if scheduler is not None and not self._adaptive:
+            raise ValueError("class-aware serving needs a QoS plan")
+        self.telemetry = telemetry or Telemetry()
+        self._controller, self._watcher = controller, watcher
+        self._scheduler, self._online, self._log = scheduler, online, log
+        self._health = health
+        if shadow_every is not None:
+            self._shadow_every = max(1, int(shadow_every))
+        elif controller is not None:
+            self._shadow_every = max(1, controller.config.shadow_every)
+        elif scheduler is not None:
+            self._shadow_every = scheduler.shadow_every
+        else:
+            self._shadow_every = 4
+        self._alloc = PageAllocator(self.n_pages, self.page_size)
+        self.static_step.reset()
+        self._pool = SlotPool(self.max_slots)
+        if scheduler is not None:
+            self._queues = WeightedFairQueues(
+                scheduler.book.names, scheduler.book.drain_weights())
+        else:
+            self._queues = WeightedFairQueues(("std",))
+        self._device_stacks: dict[int, object] = {}
+        self._device_ladder = None
+        self._step_idx = 0
+        self._tick = 0
+        self._n_preemptions = 0
+        self.completions: dict[int, np.ndarray] = {}
+        # approximation-provenance ledger: when tracing is configured the
+        # ledger rides in the trace dir (one shared writer per process, so
+        # router replicas never collide); tests may inject their own
+        self._provenance = provenance
+        if self._provenance is None:
+            tr = current_tracer()
+            if tr is not None:
+                from ..obs.provenance import ledger_for
+
+                self._provenance = ledger_for(tr.root, tr.tag)
+        self._prov_open: dict[int, dict] = {}
+        # cost plane: the model's LUT-routable MAC vector prices every
+        # provenance range; a family without one serves with it off
+        try:
+            self._macs_per_layer = mlp_macs_per_layer(self.cfg)
+        except ValueError:
+            self._macs_per_layer = None
+        self._cost_rows = {}
+        if self._provenance is not None and self._macs_per_layer is not None:
+            self._provenance.note_model(name=self.cfg.name,
+                                        macs=self._macs_per_layer)
+        if self._adaptive:
+            self.telemetry.register_plan(self._plan)
+        self._started = True
+        return self.telemetry
+
+    # ------------------------------------------------------------- admission
+    def submit(self, request: Request, now: float | None = None) -> None:
+        """Queue one request.  Join/leave happens per decode step, so this
+        never blocks; admission itself waits for a slot and pages."""
+        from .slots import SeqState
+
+        if not self._started:
+            raise RuntimeError("call start() before submit()")
+        if len(request.tokens) > self.prompt_len:
+            raise ValueError(f"request {request.rid} prompt "
+                             f"({len(request.tokens)}) exceeds prompt_len "
+                             f"({self.prompt_len})")
+        cls = (self._scheduler.book.route(request.qos_class)
+               if self._scheduler is not None else "std")
+        now = time.perf_counter() if now is None else now
+        self._queues.push(cls, SeqState(
+            rid=request.rid, cls=cls,
+            prompt=np.asarray(request.tokens, np.int32),
+            gen_len=self.gen_len, submitted_t=now))
+        self._req_event("req.queued", rid=request.rid, cls=cls,
+                        prompt_len=len(request.tokens))
+
+    def _req_event(self, name: str, **attrs) -> str:
+        """One request-lifecycle trace event; no-op when tracing is off.
+        Carries the request's ``rid`` (and the replica name under a
+        router) so the obs side can rebuild each request's chain."""
+        if self.replica_name:
+            attrs["replica"] = self.replica_name
+        return trace_event(name, **attrs)
+
+    def _admissible(self, seq) -> bool:
+        # a preempted request still holds its pages; a fresh one needs the
+        # pool to cover its whole prompt+gen lifetime (out-of-pages blocks
+        # admission up front, it never corrupts a running neighbour)
+        return self._alloc.holds(seq.rid) or self._alloc.can_alloc(
+            seq.n_tokens)
+
+    def _place(self, idx: int, seq, now: float) -> None:
+        if not self._alloc.holds(seq.rid):
+            self._alloc.alloc(seq.rid, seq.n_tokens)
+        if seq.ring_rows is not None:
+            # restore the suspended request's sliding-window ring rows into
+            # its new slot, in place in the captured buffers (paged layers
+            # need nothing: the table re-points at the same pages)
+            caches = self.static_step.caches
+            for li, rows in seq.ring_rows.items():
+                for k, v in rows.items():
+                    caches[li][k][idx].copy_(v)
+            seq.ring_rows = None
+        cls = seq.cls if self._scheduler is not None else None
+        if seq.suspended_at is not None:
+            # resume: close the suspension, as a req.* chain link and as a
+            # serve.resume control event, so an anomaly right after a
+            # resume attributes to the resume
+            susp = now - seq.suspended_at
+            seq.suspended_at = None
+            seq.suspended_s += susp
+            if seq.first_token_t is None:
+                seq.suspended_before_first_s += susp
+            self.telemetry.record_suspension(cls, susp)
+            self._req_event("req.resume", rid=seq.rid, cls=seq.cls,
+                            slot=idx, suspended_ms=round(1e3 * susp, 3))
+            eid = trace_event("serve.resume", step=self._step_idx,
+                              rid=seq.rid, cls=seq.cls)
+            if self._health is not None:
+                self._health.note_event("serve.resume", step=self._step_idx,
+                                        event_id=eid, rid=seq.rid,
+                                        cls=seq.cls)
+        elif seq.admitted_t is None:
+            seq.admitted_t = now
+            seq.queue_wait_s = now - seq.submitted_t
+            self.telemetry.record_queue(cls, self._queues.depth,
+                                        [seq.queue_wait_s])
+            self._req_event("req.admitted", rid=seq.rid, cls=seq.cls,
+                            slot=idx,
+                            queue_ms=round(1e3 * seq.queue_wait_s, 3))
+            self._req_event("req.prefill", rid=seq.rid, cls=seq.cls,
+                            slot=idx, prompt_len=len(seq.prompt))
+        self._pool.place(idx, seq)
+
+    def _preempt_slot(self, idx: int, by_cls: str, now: float) -> None:
+        seq = self._pool.evict(idx)
+        # the victim's ring rows, copied aside on the device (no host
+        # read): the slot's next occupant overwrites them
+        seq.ring_rows = {li: {"k": layer["k"][idx].clone(),
+                              "v": layer["v"][idx].clone()}
+                         for li, layer in enumerate(self.static_step.caches)
+                         if "k" in layer}
+        seq.preempted += 1
+        seq.suspended_at = now
+        self._n_preemptions += 1
+        self._queues.push_front(seq.cls, seq)
+        self._prov_close(seq.rid)
+        self.telemetry.record_preemption(
+            step=self._step_idx, victim_rid=seq.rid, victim_class=seq.cls,
+            by_class=by_cls)
+        self._req_event("req.preempt", rid=seq.rid, cls=seq.cls,
+                        step=self._step_idx, by=by_cls)
+        eid = trace_event("serve.preempt", step=self._step_idx, rid=seq.rid,
+                          victim=seq.cls, by=by_cls)
+        if self._health is not None:
+            self._health.note_event("serve.preempt", step=self._step_idx,
+                                    event_id=eid, rid=seq.rid,
+                                    victim=seq.cls, by=by_cls)
+        if self._log:
+            self._log(f"step {self._step_idx}: preempt rid={seq.rid} "
+                      f"({seq.cls}) for {by_cls}")
+
+    def _admit(self, now: float) -> None:
+        # 1) weighted-fair fill of free slots
+        while (idx := self._pool.free_slot()) is not None:
+            picked = self._queues.pick(self._admissible)
+            if picked is None:
+                break
+            _, seq = picked
+            self._place(idx, seq, now)
+        # 2) SLO preemption: a queued request whose class declares a
+        # latency SLO claims a slot from the worst strictly-lower tier
+        if self._scheduler is None:
+            return
+        book = self._scheduler.book
+        for _ in range(self.max_slots):
+            if self._pool.free_slot() is not None:
+                break
+            did = False
+            for c in book:
+                if c.slo_ms is None:
+                    continue
+                head = self._queues.peek(c.name)
+                if head is None or not self._admissible(head):
+                    continue
+                victim = self._pool.pick_victim(
+                    lambda n: book.get(n).priority, c.priority)
+                if victim is None:
+                    continue
+                self._preempt_slot(victim, by_cls=c.name, now=now)
+                self._place(victim, self._queues.pop(c.name), now)
+                did = True
+                break
+            if not did:
+                break
+
+    # ------------------------------------------------------------ provenance
+    def _prov_extend(self, seq, token_idx: int, plan_b, level) -> None:
+        """Charge one generated token to the active plan: extend the
+        request's open decode-step range when the plan is unchanged and
+        contiguous, else seal it and open a new one.  Ranges also seal on
+        preemption and completion, so a finished request's ranges tile
+        ``[0, gen_len)`` exactly."""
+        pid = plan_b.plan_id if plan_b is not None else "exact"
+        r = self._prov_open.get(seq.rid)
+        if r is not None and r["plan"] == pid and r["t1"] == token_idx:
+            r["t1"] = token_idx + 1
+            return
+        if r is not None:
+            self._provenance.record_range(**r)
+        if plan_b is not None:
+            # plans missing an exact_area (stub plans in direct-drive
+            # tests) stay unpriced; the cost audit flags them
+            exact_area = getattr(plan_b, "exact_area", None)
+            areas = (plan_layer_areas(plan_b, self._area_hi_by_key)
+                     if exact_area is not None else None)
+            self._provenance.note_plan(
+                plan_b.plan_id, [c.key or "exact" for c in plan_b.choices],
+                width_map=self._width_map,
+                areas=[lo for lo, _ in areas] if areas else None,
+                areas_hi=[hi for _, hi in areas] if areas else None,
+                exact_area=exact_area)
+        self._prov_open[seq.rid] = {
+            "rid": seq.rid, "cls": seq.cls, "t0": token_idx,
+            "t1": token_idx + 1, "plan": pid, "level": level, "drift": [],
+            "replica": self.replica_name or None}
+
+    def _prov_close(self, rid: int) -> None:
+        if self._provenance is None:
+            return
+        r = self._prov_open.pop(rid, None)
+        if r is not None:
+            self._provenance.record_range(**r)
+
+    def _cost_row(self, plan_b) -> dict:
+        """The per-token cost increments of the step's live plan, cached
+        by plan id (refresh paths clear the cache)."""
+        pid = plan_b.plan_id if plan_b is not None else "exact"
+        row = self._cost_rows.get(pid)
+        if row is None:
+            from ..obs.costs import plan_cost_row
+
+            areas = (plan_layer_areas(plan_b, self._area_hi_by_key)
+                     if plan_b is not None else None)
+            row = plan_cost_row(plan_b, self._macs_per_layer,
+                                layer_areas=areas)
+            self._cost_rows[pid] = row
+        return row
+
+    # ------------------------------------------------------------------ step
+    def _resolve_stack(self, active_classes):
+        """The step's LUT stack: with a scheduler, the batch decodes at the
+        level of its strictest active class (slots share one step, so the
+        most exacting tenant sets the table for everyone in it).  Returns
+        ``(stack, plan, global_level, step_level)``, the stack on the
+        device in the live stack's form, checked once a level and cached
+        until the ladder is refreshed."""
+        if not self._adaptive:
+            return None, None, None, None
+        if self._scheduler is None:
+            lvl = self._controller.level if self._controller else None
+            return None, self._plan, lvl, lvl
+        sch = self._scheduler
+        glevel = (self._controller.level if self._controller is not None
+                  else sch.top_level)
+        level = min((sch.level_for(c, glevel) for c in active_classes),
+                    default=min(glevel, sch.top_level))
+        if sch.ladder is not self._device_ladder:
+            self._device_stacks.clear()
+            self._device_ladder = sch.ladder
+        luts = self._device_stacks.get(level)
+        if luts is None:
+            luts = self._adopt(sch.ladder.luts(level))
+            self._device_stacks[level] = luts
+        plan = sch.ladder.plan(level)
+        self.telemetry.register_plan(plan)
+        return luts, plan, glevel, level
+
+    def step_once(self, now: float | None = None) -> bool:
+        """Admit what fits, then run one decode step over the pool.
+        Returns ``False`` (and runs nothing) when no slot is active."""
+        if not self._started:
+            raise RuntimeError("call start() before step_once()")
+        now = time.perf_counter() if now is None else now
+        preempts_before = self._n_preemptions
+        self._admit(now)
+        occupied = list(self._pool)
+        if not occupied:
+            return False
+
+        S, T = self.max_slots, self.table_entries
+        toks = np.zeros((S, 1), np.int32)
+        pos = np.zeros(S, np.int64)
+        active = np.zeros(S, bool)
+        # every entry of an empty slot, and past an allocation, is the
+        # scratch page (SCRATCH_PAGE == 0)
+        tables = np.zeros((S, T), np.int64)
+        for idx, seq in occupied:
+            toks[idx, 0] = seq.next_token()
+            pos[idx] = seq.pos
+            active[idx] = True
+            tables[idx] = self._alloc.padded_table(seq.rid, T)
+
+        classes = sorted({seq.cls for _, seq in occupied})
+        luts, plan_b, glevel, step_level = self._resolve_stack(classes)
+        if self._adaptive and luts is None:
+            luts, plan_b = self._luts, self._plan
+        step = self.static_step
+        step.write(toks, pos, active, tables)
+        want_shadow = (self._adaptive
+                       and (self._controller is not None
+                            or self._scheduler is not None)
+                       and self._step_idx % self._shadow_every == 0)
+        shadow_logits = None
+        if want_shadow:
+            # the exact shadow step on the same caches, saved before and
+            # restored after, outside the timed section
+            with trace_span("serve.shadow"):
+                step.save_caches()
+                step.load(self._exact_luts)
+                shadow_logits = step.replay().clone()
+                step.restore_caches()
+                self._sync()
+        src = luts if luts is not None else self._luts
+        if src is not None:
+            step.load(src)
+        t0 = time.perf_counter()
+        if self.inject_step_delay:
+            # chaos hook: the sleep sits inside the timed section, so an
+            # injected latency spike is indistinguishable from a real one
+            time.sleep(self.inject_step_delay)
+        logits = step.replay()
+        # the step's one device-to-host read, which ends its timed section
+        sampled = logits.argmax(dim=-1).cpu().numpy()
+        step_s = time.perf_counter() - t0
+
+        drift = None
+        if shadow_logits is not None:
+            rows = torch.from_numpy(np.flatnonzero(active)).to(self.device)
+            drift = float((logits[rows] - shadow_logits[rows]).abs().mean())
+
+        t_done = time.perf_counter()
+        by_class: dict[str, dict] = {}
+        for idx, seq in occupied:
+            row = by_class.setdefault(
+                seq.cls, {"rows": 0, "decode_tokens": 0,
+                          "prefill_tokens": 0})
+            row["rows"] += 1
+            generated, first = seq.advance(int(sampled[idx]))
+            if generated:
+                row["decode_tokens"] += 1
+                if self._provenance is not None:
+                    self._prov_extend(seq, len(seq.generated) - 1,
+                                      plan_b if self._adaptive else None,
+                                      step_level)
+                    if drift is not None:
+                        self._prov_open[seq.rid]["drift"].append(
+                            round(drift, 6))
+            else:
+                row["prefill_tokens"] += 1
+            if first:
+                seq.first_token_t = t_done
+                self.telemetry.record_ttft(
+                    seq.cls if self._scheduler is not None else None,
+                    t_done - seq.submitted_t)
+                self._req_event(
+                    "req.decode", rid=seq.rid, cls=seq.cls,
+                    ttft_ms=round(1e3 * (t_done - seq.submitted_t), 3),
+                    prefill_ms=round(
+                        1e3 * max(0.0, (t_done - seq.admitted_t)
+                                  - seq.suspended_before_first_s), 3)
+                    if seq.admitted_t is not None else None)
+            if seq.done:
+                self._pool.evict(idx)
+                self._alloc.free(seq.rid)
+                gen = np.asarray(seq.generated, np.int32)
+                self.completions[seq.rid] = gen
+                self.last_tokens = gen[None, :]
+                self.telemetry.record_request_done(
+                    seq.cls if self._scheduler is not None else None)
+                b = seq.breakdown(t_done)
+                self._req_event("req.done", rid=seq.rid, cls=seq.cls,
+                                steps=seq.pos, preempts=seq.preempted,
+                                resumes=seq.preempted, **b)
+                if self._provenance is not None:
+                    self._prov_close(seq.rid)
+                    self._provenance.record_done(
+                        rid=seq.rid, cls=seq.cls, gen_len=len(gen),
+                        steps=seq.pos, preempts=seq.preempted,
+                        replica=self.replica_name or None)
+
+        if self._macs_per_layer is not None:
+            cost_row = self._cost_row(plan_b if self._adaptive else None)
+            for cls, r in by_class.items():
+                if r["decode_tokens"]:
+                    self.telemetry.record_costs(
+                        cls if self._scheduler is not None else None,
+                        r["decode_tokens"], cost_row)
+
+        backlog = self._queues.depth
+        occ = self._pool.occupancy
+        self.telemetry.record_step(
+            step=self._step_idx, tick=self._tick, step_s=step_s,
+            by_class=by_class,
+            decode_tokens=sum(r["decode_tokens"] for r in by_class.values()),
+            prefill_tokens=sum(r["prefill_tokens"]
+                               for r in by_class.values()),
+            plan_id=plan_b.plan_id if self._adaptive else None,
+            drift=drift, backlog=backlog, occupancy=occ)
+        self.telemetry.record_pages(used=self._alloc.used_pages,
+                                    total=self._alloc.n_pages)
+        if self._health is not None:
+            self._health.observe_step(
+                step=self._step_idx, step_ms=1e3 * step_s,
+                classes=by_class, drift=drift, backlog=backlog,
+                occupancy=occ,
+                preemptions=self._n_preemptions - preempts_before,
+                plan_id=plan_b.plan_id if self._adaptive else None,
+                level=glevel,
+                pages={"used": self._alloc.used_pages,
+                       "free": self._alloc.free_pages,
+                       "total": self._alloc.n_pages},
+                class_state=(self._scheduler.snapshot(glevel)
+                             if self._scheduler is not None else None))
+
+        self._control_plane(step_s, drift, plan_b, glevel, backlog, occ)
+        self._step_idx += 1
+        return True
+
+    def _control_plane(self, step_s, drift, plan_b, glevel, backlog, occ):
+        controller, scheduler = self._controller, self._scheduler
+        if drift is not None and self._adaptive:
+            if scheduler is not None:
+                for cls in {seq.cls for _, seq in self._pool}:
+                    scheduler.observe(cls, drift)
+            if self._online is not None and plan_b is not None:
+                self._online.update(self._plan_maes(plan_b), drift)
+        if self._watcher is not None and self._adaptive \
+                and self._watcher.poll():
+            self._watch(self._watcher, controller, scheduler, self.telemetry,
+                        self._step_idx, self._log, unit="step")
+        if controller is not None and self._adaptive:
+            # occupancy replaces the fixed loop's whole-queue heuristic:
+            # requests already in slots are being served, only true
+            # admission-queue depth counts as waiting work
+            eff_ms = effective_load_ms(1e3 * step_s, backlog=backlog,
+                                       capacity=self.max_slots,
+                                       occupancy=occ)
+            drift_sig = (drift if scheduler is None
+                         or (glevel is not None
+                             and plan_b is scheduler.ladder.plan(glevel))
+                         else None)
+            level = controller.observe(eff_ms, drift_sig)
+            if level is not None:
+                self._control(controller, scheduler, self.telemetry, level,
+                              glevel, self._step_idx, self._log, unit="step")
+
+    # ----------------------------------------------------------------- serve
+    def serve(self, profile: LoadProfile, *, controller=None, watcher=None,
+              scheduler=None, online=None,
+              telemetry: Telemetry | None = None, seed: int = 0,
+              steps_per_tick: int | None = None,
+              on_step_end: Callable[["ContinuousServingEngine", int],
+                                    None] | None = None,
+              log: Callable[[str], None] | None = None,
+              health=None) -> Telemetry:
+        """Serve a synthetic load profile continuously: each tick's
+        arrivals join the admission queues, then up to ``steps_per_tick``
+        decode steps run before the next tick's arrivals -- requests keep
+        joining and leaving the pool mid-generation.  After the last tick
+        the pool drains to empty.  A crash freezes the health plane's
+        flight recorder before it propagates."""
+        if profile.prompt_len > self.prompt_len:
+            raise ValueError(f"profile prompts up to {profile.prompt_len} "
+                             f"exceed engine prompt_len {self.prompt_len}")
+        if profile.gen_len != self.gen_len:
+            raise ValueError("profile gen_len differs from the engine's")
+        telemetry = self.start(telemetry=telemetry, controller=controller,
+                               watcher=watcher, scheduler=scheduler,
+                               online=online, health=health, log=log)
+        steps = steps_per_tick or self.steps_per_tick
+        per_tick = synth_requests(profile, self.cfg.vocab_size, seed)
+        try:
+            with trace_span("serve.continuous", slots=self.max_slots,
+                            pages=self.n_pages):
+                for tick in range(profile.n_ticks):
+                    self._tick = tick
+                    now = time.perf_counter()
+                    for r in per_tick[tick]:
+                        self.submit(r, now)
+                    for _ in range(steps):
+                        if not self.step_once():
+                            break
+                        if on_step_end is not None:
+                            on_step_end(self, self._step_idx - 1)
+                while self.step_once():
+                    if on_step_end is not None:
+                        on_step_end(self, self._step_idx - 1)
+        except BaseException as e:
+            # the flight recorder's crash path: freeze the ring before the
+            # exception unwinds past the serve loop, then re-raise
+            if self._health is not None:
+                self._health.record_crash(e)
+            raise
+        return telemetry

@@ -1,10 +1,12 @@
-"""Deterministic synthetic load: own copy of the part of
-``repro.serving.loadgen`` the engine serves, so that both engines serve
-the same request stream from the same ``(profile, seed)``.
+"""Deterministic synthetic load: own copy of ``repro.serving.loadgen``,
+so that both engines serve the same request stream from the same
+``(profile, seed)``.
 
 A :class:`LoadProfile` is a per-tick arrival count plus fixed request
 shapes; :func:`synth_requests` materialises it with numpy, bit-identical
-on any machine.
+on any machine.  Three shapes cover the controller's regimes: ``steady``
+(constant arrivals), ``ramp`` (linearly growing) and ``spike`` (a burst
+over a baseline).
 """
 
 from __future__ import annotations
@@ -12,6 +14,13 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+
+__all__ = ["Request", "LoadProfile", "steady", "ramp", "spike",
+           "make_profile", "synth_requests", "parse_prompt_dist",
+           "PROFILES", "PROMPT_DISTS"]
+
+PROFILES = ("steady", "ramp", "spike")
+PROMPT_DISTS = ("uniform", "bimodal")
 
 # prompt-length RNG salt: lengths ride their own stream, so turning a
 # distribution on never changes which tokens a request draws
@@ -59,6 +68,69 @@ def steady(ticks: int, per_tick: int, *, prompt_len: int = 16,
            prompt_dist=None) -> LoadProfile:
     return LoadProfile("steady", (per_tick,) * ticks, prompt_len, gen_len,
                        class_mix, prompt_dist)
+
+
+def ramp(ticks: int, peak: int, *, prompt_len: int = 16,
+         gen_len: int = 32, class_mix=None, prompt_dist=None) -> LoadProfile:
+    """0 -> ``peak`` arrivals, linearly over ``ticks`` ticks."""
+    arr = tuple(int(round(peak * (t + 1) / ticks)) for t in range(ticks))
+    return LoadProfile("ramp", arr, prompt_len, gen_len, class_mix,
+                       prompt_dist)
+
+
+def spike(ticks: int, base: int, peak: int, *, at: int | None = None,
+          width: int | None = None, prompt_len: int = 16,
+          gen_len: int = 32, class_mix=None,
+          prompt_dist=None) -> LoadProfile:
+    """``base`` arrivals with a ``peak`` burst of ``width`` ticks at ``at``."""
+    at = ticks // 3 if at is None else at
+    width = max(1, ticks // 4) if width is None else width
+    arr = tuple(peak if at <= t < at + width else base for t in range(ticks))
+    return LoadProfile("spike", arr, prompt_len, gen_len, class_mix,
+                       prompt_dist)
+
+
+def parse_prompt_dist(spec: str, prompt_len: int) -> tuple:
+    """A prompt-length spec -> a :class:`LoadProfile.prompt_dist` tuple.
+
+    ``"uniform:4-16"`` draws each request's length uniformly in [4, 16];
+    ``"bimodal:4-16"`` draws half near 4 and half near 16.  Bounds must
+    fit ``[1, prompt_len]``."""
+    try:
+        kind, _, rng = spec.partition(":")
+        lo_s, _, hi_s = rng.partition("-")
+        lo, hi = int(lo_s), int(hi_s)
+    except ValueError:
+        raise ValueError(
+            f"bad prompt-length spec {spec!r}; expected kind:lo-hi, e.g. "
+            f"uniform:4-16 (kinds: {PROMPT_DISTS})") from None
+    if kind not in PROMPT_DISTS:
+        raise ValueError(
+            f"unknown prompt-length distribution {kind!r}; "
+            f"known: {PROMPT_DISTS}")
+    if not 1 <= lo <= hi <= prompt_len:
+        raise ValueError(
+            f"prompt-length bounds {lo}-{hi} must satisfy "
+            f"1 <= lo <= hi <= prompt_len ({prompt_len})")
+    return (kind, lo, hi)
+
+
+def make_profile(kind: str, *, ticks: int, per_tick: int,
+                 prompt_len: int = 16, gen_len: int = 32,
+                 class_mix=None, prompt_dist=None) -> LoadProfile:
+    """One of :data:`PROFILES` at a given scale.  ``per_tick`` is the
+    steady rate / ramp peak / spike peak (spike base is 1)."""
+    if kind == "steady":
+        return steady(ticks, per_tick, prompt_len=prompt_len, gen_len=gen_len,
+                      class_mix=class_mix, prompt_dist=prompt_dist)
+    if kind == "ramp":
+        return ramp(ticks, per_tick, prompt_len=prompt_len, gen_len=gen_len,
+                    class_mix=class_mix, prompt_dist=prompt_dist)
+    if kind == "spike":
+        return spike(ticks, 1, per_tick, prompt_len=prompt_len,
+                     gen_len=gen_len, class_mix=class_mix,
+                     prompt_dist=prompt_dist)
+    raise ValueError(f"unknown load profile {kind!r}; known: {PROFILES}")
 
 
 def _draw_lengths(dist: tuple, n: int, rng: np.random.Generator

@@ -22,9 +22,12 @@ from repro_torch.core.synth import area  # noqa: E402
 from repro_torch.kernels import approx_matmul as am  # noqa: E402
 from repro_torch.library.compile import load_mul_frontier  # noqa: E402
 from repro_torch.library.store import OperatorSignature, OperatorStore  # noqa: E402
-from repro_torch.models import decode_fn, init_caches, init_model  # noqa: E402
-from repro_torch.serving import (PlanLadder, ServingEngine, steady,  # noqa: E402
-                                 synth_requests)
+from repro_torch.models import (decode_fn, decode_paged_fn, init_caches,  # noqa: E402
+                                init_model, init_paged_caches)
+from repro_torch.sensitivity import ClassBook, ClassScheduler  # noqa: E402
+from repro_torch.serving import (ContinuousServingEngine, PageAllocator,  # noqa: E402
+                                 PlanLadder, ServingEngine, Telemetry, make_profile,
+                                 steady, synth_requests)
 
 PROMPT, GEN = 4, 6
 
@@ -162,3 +165,111 @@ def test_launch_counts_follow_the_replays(cuda, library):
     assert eng.static_step.launches_per_replay == {
         "approx_matmul_w4": 3 * eng.cfg.n_layers}
     assert am.approx_matmul_w4.launches - n == done * 3 * eng.cfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# the continuous engine's paged step
+# ---------------------------------------------------------------------------
+def _paged_engine(cuda, library, max_slots=2):
+    cfg = dataclasses.replace(get_config("qwen3-4b", reduced=True),
+                              dtype="float32").with_approx_mlp(4)
+    params = init_model(cfg, seed=0, device=cuda)
+    compiled, exact_area, _ = load_mul_frontier(library)
+    ladder = PlanLadder.build(compiled, cfg.n_layers, exact_area=exact_area, levels=4)
+    eng = ContinuousServingEngine(cfg, params, max_slots=max_slots, prompt_len=8,
+                                  gen_len=12, page_size=4, plan=ladder.plan(0),
+                                  compiled=compiled, exact_area=exact_area,
+                                  device=cuda)
+    return eng, ladder
+
+
+@pytest.mark.cuda
+def test_paged_replay_equals_the_eager_paged_step(cuda, library):
+    eng, ladder = _paged_engine(cuda, library, max_slots=3)
+    eng.start()
+    st = eng.static_step
+    luts = torch.as_tensor(ladder.luts(len(ladder) - 1), device=cuda)
+    st.load(luts)
+    cfg, S, T = eng.cfg, eng.max_slots, eng.table_entries
+    caches = init_paged_caches(cfg, S, eng.n_pages, eng.page_size, eng.total,
+                               device=cuda)
+    alloc = PageAllocator(eng.n_pages, eng.page_size)
+    rng = np.random.default_rng(0)
+    # slot 0 from step 0; slot 2 joins at 1 and leaves after 5 steps; slot 1
+    # joins at 7 on the freed pages
+    life = {0: (0, 19), 2: (1, 5), 1: (7, 12)}
+    pos = {}
+    for step in range(19):
+        toks = np.zeros((S, 1), np.int32)
+        p = np.zeros(S, np.int64)
+        act = np.zeros(S, bool)
+        tab = np.zeros((S, T), np.int64)
+        for slot, (join, n) in life.items():
+            if step == join:
+                alloc.alloc(slot, eng.total)
+                pos[slot] = 0
+            if slot in pos:
+                toks[slot, 0] = rng.integers(0, cfg.vocab_size)
+                p[slot], act[slot] = pos[slot], True
+                tab[slot] = alloc.padded_table(slot, T)
+                pos[slot] += 1
+                if pos[slot] == n:
+                    alloc.free(slot)
+                    del pos[slot]
+        st.write(toks, p, act, tab)
+        got = st.replay()
+        args = [torch.from_numpy(a).to(cuda) for a in (toks, p, act, tab)]
+        want, _ = decode_paged_fn(cfg)(cfg, eng.params, caches, *args, luts=luts)
+        rows = torch.from_numpy(np.flatnonzero(act)).to(cuda)
+        assert torch.equal(got[rows], want[rows]), step
+    assert eng.trace_count == 1
+
+
+@pytest.mark.cuda
+def test_joins_leaves_and_preemptions_never_recapture(cuda, library):
+    eng, ladder = _paged_engine(cuda, library)
+    book = ClassBook.parse("gold:1e-12@250ms,batch:1e-12")
+    prof = make_profile("spike", ticks=6, per_tick=5, prompt_len=8, gen_len=12,
+                        class_mix=(("gold", 0.4), ("batch", 0.6)),
+                        prompt_dist=("uniform", 3, 8))
+    eng.start()
+    st = eng.static_step
+    ptrs = [st.tok.data_ptr(), st.pos.data_ptr(), st.active.data_ptr(),
+            st.tables.data_ptr(), st.logits.data_ptr(), st.luts.data_ptr()]
+    ptrs += [c[k].data_ptr() for c in st.caches for k in sorted(c)]
+    tel = eng.serve(prof, scheduler=ClassScheduler(book, ladder, shadow_every=4),
+                    telemetry=Telemetry(), seed=1, steps_per_tick=5)
+    assert tel.preemptions >= 1 and len(eng.completions) == prof.total_requests
+    assert eng.static_step is st and eng.trace_count == 1
+    now = [st.tok.data_ptr(), st.pos.data_ptr(), st.active.data_ptr(),
+           st.tables.data_ptr(), st.logits.data_ptr(), st.luts.data_ptr()]
+    now += [c[k].data_ptr() for c in st.caches for k in sorted(c)]
+    assert now == ptrs
+    # the same requests in a pool that never preempts, at the same
+    # max_slots: a larger page pool, the same rows
+    roomy, _ = _paged_engine(cuda, library)
+    roomy.serve(prof, scheduler=ClassScheduler(ClassBook.parse("gold:1e-12,batch:1e-12"),
+                                               ladder, shadow_every=4),
+                telemetry=Telemetry(), seed=1, steps_per_tick=5)
+    assert roomy.preemption_count == 0
+    for rid, gen in roomy.completions.items():
+        assert np.array_equal(eng.completions[rid], gen), rid
+
+
+@pytest.mark.cuda
+def test_paged_save_and_restore_round_trip_the_pools(cuda, library):
+    eng, _ = _paged_engine(cuda, library)
+    eng.start()
+    st = eng.static_step
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    for c in st.caches:
+        for buf in c.values():
+            buf.copy_(torch.randn(buf.shape, generator=gen, device=cuda))
+    want = [{k: v.clone() for k, v in c.items()} for c in st.caches]
+    st.save_caches()
+    st.reset()
+    assert all(float(v.abs().max()) == 0 for c in st.caches for v in c.values())
+    st.restore_caches()
+    for c, w in zip(st.caches, want):
+        assert set(c) == {"kp", "vp"}
+        assert all(torch.equal(c[k], w[k]) for k in c)

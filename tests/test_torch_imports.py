@@ -26,7 +26,7 @@ def test_port_imports_no_jax_and_no_reference():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True,
                          env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""})
-    assert int(out.stdout.strip()) >= 50  # every module of slices 1 to 7
+    assert int(out.stdout.strip()) >= 59  # every module of slices 1 to 8
 
 
 def test_port_sources_name_no_jax_import():
@@ -41,8 +41,8 @@ def test_port_sources_name_no_jax_import():
 
 def test_default_device_entry_points_raise_without_a_card(monkeypatch):
     from repro_torch.configs import get_config
-    from repro_torch.models import init_model
-    from repro_torch.serving import ServingEngine
+    from repro_torch.models import init_model, init_paged_caches
+    from repro_torch.serving import ContinuousServingEngine, ServingEngine
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = get_config("qwen3-4b", reduced=True)
@@ -51,6 +51,10 @@ def test_default_device_entry_points_raise_without_a_card(monkeypatch):
     params = init_model(cfg, seed=0, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ServingEngine(cfg, params, batch=1, prompt_len=2, gen_len=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ContinuousServingEngine(cfg, params, max_slots=2, prompt_len=2, gen_len=2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_paged_caches(cfg, 2, 4, 4, 8)
     from repro_torch.models import forward_fn
     with pytest.raises(RuntimeError, match="no CUDA device"):
         forward_fn(cfg)(cfg, params, {"tokens": [[1, 2]]})
@@ -88,3 +92,31 @@ def test_search_modules_load_without_jax():
                          capture_output=True, text=True,
                          env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""})
     assert out.stdout.strip() == "2"
+
+
+def test_continuous_modules_load_and_serve_without_jax():
+    """The continuous tier's modules (paged decode, page allocator, slots,
+    router, and the health, provenance and cost planes) load and serve a
+    request stream on the CPU with neither jax nor repro in the process."""
+    code = (
+        "import sys, dataclasses\n"
+        "from repro_torch.serving import kvcache, slots, router\n"
+        "from repro_torch.obs import costs, provenance, requests, anomaly, flight, health\n"
+        "from repro_torch.models import init_paged_caches, decode_paged_fn, init_model\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.serving import ContinuousServingEngine, Telemetry, make_profile\n"
+        "cfg = dataclasses.replace(get_config('qwen3-4b', reduced=True), dtype='float32')\n"
+        "eng = ContinuousServingEngine(cfg, init_model(cfg, seed=0, device='cpu'),"
+        " max_slots=2, prompt_len=6, gen_len=4, page_size=4, device='cpu')\n"
+        "hp = health.HealthPlane(None)\n"
+        "eng.serve(make_profile('ramp', ticks=2, per_tick=3, prompt_len=6, gen_len=4,"
+        " prompt_dist=('uniform', 2, 6)), telemetry=Telemetry(), health=hp)\n"
+        "assert eng.trace_count == 1 and eng._alloc.used_pages == 0\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print(len(eng.completions))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True,
+                         env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""})
+    assert out.stdout.strip() == "5"   # ramp(2, 3): 2 + 3 arrivals

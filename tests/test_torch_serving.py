@@ -268,8 +268,14 @@ def test_plan_engine_refusals(two_op_library):
     plan = tselect_plan(compiled, np.ones(ct.n_layers), 0.0, exact_area=exact_area)
     kw = dict(batch=2, prompt_len=PROMPT, gen_len=GEN, device="cpu")
     pe = ServingEngine(ct, pt, plan=plan, compiled=compiled, **kw)
-    with pytest.raises(NotImplementedError, match="health"):
-        pe.serve(steady(1, 1, prompt_len=PROMPT, gen_len=GEN), health=object())
+    observed = []
+
+    class _Health:      # serve(health=) runs now: one observation a batch
+        def observe_step(self, **kw):
+            observed.append(kw["step"])
+
+    pe.serve(steady(1, 1, prompt_len=PROMPT, gen_len=GEN), health=_Health())
+    assert observed == [0]
     with pytest.raises(NotImplementedError, match="sensitivity"):
         ServingEngine(ct, pt, plan=plan, compiled=compiled, sens_profile=object(), **kw)
     with pytest.raises(ValueError, match="not both"):
