@@ -55,7 +55,14 @@ failing the run on any mismatch:
    LUT matmul: identical tokens;
 6. run ``forward_lm`` at B=2, S=512, W4A4: the first position's logits
    must equal the plain path's bit for bit;
-7. print the kernels line (launches on the main path, deviations, times,
+7. call the system's entry points in this process (``[cli]`` lines): the
+   profiler's ``main`` at W4A4 over the searched library (36 flash and 108
+   W4A4 launches a forward), ``measure_profile`` refusing the 8-bit probe
+   before any forward, the serve launcher's ``main`` on the continuous
+   traffic with classes, a controller, the profile, a trace and the health
+   plane (one capture, every request chain complete, launches 108 a replay)
+   and at W8A8, and the inspector's gates over that trace, each exiting 0;
+8. print the kernels line (launches on the main path, deviations, times,
    bounds), where a decode step's time goes, the card's name and power
    limit, and a last line of JSON.
 
@@ -89,10 +96,12 @@ PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12,
             "int32": 132 * 64 * 1.98e9}
 
 # qwen3-4b MLP matmul shapes: decode (M = the fixed engine's batch of 4
-# and the continuous engine's 8 slots) and the B=2 x S=512 forward
-# (M = 1024), for w1/w3 (K=d_model) and w2 (K=d_ff)
+# and the continuous engine's 8 slots), the profiler's B=4 x S=32 forwards
+# (M = 128) and the B=2 x S=512 forward (M = 1024), for w1/w3 (K=d_model)
+# and w2 (K=d_ff)
 MM_SHAPES = [(4, 2560, 9728), (4, 9728, 2560), (8, 2560, 9728),
-             (8, 9728, 2560), (1024, 2560, 9728), (1024, 9728, 2560)]
+             (8, 9728, 2560), (128, 2560, 9728), (128, 9728, 2560),
+             (1024, 2560, 9728), (1024, 9728, 2560)]
 # the kernels line reports each LUT matmul at the rows of the paths that
 # launch it most: the continuous serve's 8 slots at W4A4; at W8A8 both
 # paths (the fixed batch and the continuous serve) run 4 rows
@@ -107,10 +116,13 @@ MM_EDGES = ([(M, 300, 200) for M in (1, 4, 8, 9, 63, 64, 65, 256, 1024)]
 # W8A8 at its overflow edge: every code and tile entry 255 at K = max_k
 # gives 255 * 289 * 29,140 = 2,147,472,300 in every entry
 MM_OVERFLOW = (3, 29140, 70)
-# (B, H, Hkv, Lq, Lk, D, dtype, window, causal): the main path's prefill
-# shape, a kv prefix, windows, head dims 64 and 256, non-causal, ragged
-# lengths, and Lk < Lq, whose first rows see no key
+# (B, H, Hkv, Lq, Lk, D, dtype, window, causal): the profiler's forward
+# (the whole sequence inside one partial key tile and one partial query
+# block), the main path's prefill shape, a kv prefix, windows, head dims 64
+# and 256, non-causal, ragged lengths, and Lk < Lq, whose first rows see
+# no key
 FLASH_CASES = [
+    (4, 32, 8, 32, 32, 128, "bfloat16", None, True),
     (2, 32, 8, 512, 512, 128, "bfloat16", None, True),
     (2, 32, 8, 512, 512, 128, "float32", None, True),
     (1, 32, 8, 128, 384, 128, "bfloat16", None, True),
@@ -129,9 +141,10 @@ FLASH_CASES = [
     (1, 8, 2, 300, 100, 128, "bfloat16", None, True),    # 200 rows see no key
     (1, 8, 2, 300, 100, 64, "float32", 64, True),
 ]
-# timed, in this order (the main bf16 shape first: the kernels line takes
-# the first row of each kernel)
-FLASH_TIMED = [(2, 32, 8, 512, 512, 128, "bfloat16", None, True),
+# timed, in this order (the profiler's shape first, which carries most of
+# flash's launches: the kernels line takes the first row of each kernel)
+FLASH_TIMED = [(4, 32, 8, 32, 32, 128, "bfloat16", None, True),
+               (2, 32, 8, 512, 512, 128, "bfloat16", None, True),
                (1, 32, 8, 128, 384, 128, "bfloat16", None, True),
                (2, 32, 8, 512, 512, 128, "bfloat16", 128, True),
                (2, 32, 8, 512, 512, 128, "float32", None, True)]
@@ -874,14 +887,15 @@ def phase_plans(torch, cfg, params, library: Path, results: dict) -> None:
     from repro_torch.library.qos import (measure_sensitivities, plan_ladder,
                                          select_plan, stack_luts)
     from repro_torch.library.store import OperatorStore
-    from repro_torch.models import decode_fn, forward_fn, init_caches
+    from repro_torch.models import decode_fn, init_caches
     from repro_torch.models.lm import to_device_luts
     from repro_torch.precision.plans import (WidthFrontier, build_mixed_ladder,
                                              choose_mixed_budget, load_frontier,
                                              load_mixed_frontier, select_width_map,
                                              stack_mixed_luts)
-    from repro_torch.precision.widths import exact_table, get_width
+    from repro_torch.precision.widths import get_width
     from repro_torch.quant.lut import build_lut, exact_mul_lut
+    from repro_torch.sensitivity.profile import model_eval_drift
     from repro_torch.serving import ServingEngine, steady, synth_requests
 
     out: dict = {"baselines": []}
@@ -973,18 +987,10 @@ def phase_plans(torch, cfg, params, library: Path, results: dict) -> None:
     gen = torch.Generator(device="cuda").manual_seed(6)
     batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, 256), generator=gen,
                                      device="cuda")}
-    fwd = forward_fn(cfg4)
-    exact4 = exact_table("mul", 4).astype(np.int32)
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    base = fwd(cfg4, params, batch, lut=np.stack([exact4] * L))[0]
-
-    def eval_drift(per_layer) -> float:
-        stack = np.stack([exact4 if t is None else t for t in per_layer])
-        return float((fwd(cfg4, params, batch, lut=stack)[0] - base).abs().mean())
-
-    sens = measure_sensitivities(eval_drift, L, probe)
+    sens = measure_sensitivities(model_eval_drift(cfg4, params, batch, 4), L, probe)
     torch.cuda.synchronize()
     sens_s = time.perf_counter() - t0
     counts = read_counts()
@@ -1516,7 +1522,8 @@ def phase_continuous(torch, cfg, params, library: Path, results: dict) -> None:
     require(((toks >= 0) & (toks < cfg.vocab_size)).all(), "tokens out of the vocabulary")
     s = tel.summary()
     events = list(tel.events)
-    full = [e for e in events if sum(e["active"].values()) == S]
+    steps = [e for e in events if "active" in e]       # not the preemptions
+    full = [e for e in steps if sum(e["active"].values()) == S]
     full_s = sum(e["step_ms"] for e in full) / 1e3
     full_tok_s = sum(e["decode_tokens"] for e in full) / full_s if full_s else 0.0
     full_rows_s = S * len(full) / full_s if full_s else 0.0
@@ -1808,6 +1815,316 @@ def phase_continuous(torch, cfg, params, library: Path, results: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the system's own entry points
+# ---------------------------------------------------------------------------
+def phase_cli(torch, cfg, params, library: Path, results: dict) -> None:
+    """The entry points a user calls, in this process, at full width: the
+    profiler (``python -m repro_torch.sensitivity.profile``) at W4A4 over
+    the searched library, its refusal of the 8-bit probe, the serve
+    launcher (``python -m repro_torch.launch.serve``) on the
+    ``[continuous]`` traffic with classes, a controller, the profile, a
+    trace and the health plane, a W8A8 serve, and the inspector
+    (``python -m repro_torch.obs``) over the serve's trace.  Each call's
+    standard output goes to ``chiprun_out/cli_<name>.log``; the tracer and
+    the process's metric registry are reset after each, as a new process
+    would start without them."""
+    import contextlib
+    import io
+
+    import numpy as np
+
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import forward_fn
+    from repro_torch.obs import __main__ as inspect_cli
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.precision.plans import load_frontier
+    from repro_torch.precision.widths import exact_table
+    from repro_torch.sensitivity import profile as profile_cli
+    from repro_torch.serving.engine import _WARMUP
+
+    out: dict = {}
+    results["cli"] = out
+    L = cfg.n_layers
+    tmp = ROOT / "build" / "cli"
+    shutil.rmtree(tmp, ignore_errors=True)
+    (tmp / "base").mkdir(parents=True)
+    log_dir = ROOT / "chiprun_out"
+    log_dir.mkdir(exist_ok=True)
+
+    def call(name: str, main, argv: list[str]):
+        buf = io.StringIO()
+        obs_metrics.set_registry(obs_metrics.MetricRegistry())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(buf):
+                rc = main([str(a) for a in argv])
+            torch.cuda.synchronize()
+        finally:
+            obs_trace.reset(clear_env=True)
+            obs_metrics.set_registry(obs_metrics.MetricRegistry())
+            (log_dir / f"cli_{name}.log").write_text(buf.getvalue())
+        return rc, buf.getvalue(), time.perf_counter() - t0
+
+    # 1. the profiler at W4A4: 1 + L + L*O forwards, each through flash once
+    # a layer and the W4A4 kernel three times a layer
+    compiled = load_frontier(library, 4)[0]
+    O = len(compiled)
+    forwards = 1 + L + L * O
+    reset_counts()
+    _, text, secs = call("profile", profile_cli.main, [
+        "--arch", "qwen3-4b", "--widths", "4", "--library", library,
+        "--batch", 4, "--seq", 32, "--out", tmp / "p.json"])
+    counts = read_counts()
+    require(counts["flash_attention"] == forwards * L
+            and counts["approx_matmul_w4"] == 3 * forwards * L
+            and counts["approx_matmul_w8"] == 0,
+            f"cli profile launches {counts}, expected {forwards} forwards")
+    prof = profile_cli.load_profile(tmp / "p.json")
+    sens = prof.sensitivities(4)
+    keys, matrix = prof.costs[4]
+    require(prof.n_layers == L and np.isfinite(sens).all() and (sens > 0).all(),
+            f"cli profile sensitivities {sens}")
+    require(matrix.shape == (L, O) and keys == [rec.key for rec, _ in compiled]
+            and np.isfinite(matrix).all(),
+            f"cli profile cost matrix {matrix.shape}, expected {(L, O)}")
+    credit(results, "cli profile", counts, "approx_matmul_w4", "flash_attention")
+    out["profile"] = {"operators": O, "forwards": forwards, "seconds": secs,
+                      "sensitivities": sens.tolist(), "launches": counts}
+    log(f"[cli] profile (--widths 4, B=4 S=32): a frontier of {O} operator(s), "
+        f"{forwards} forwards in {secs:.2f} s ({1e3 * secs / forwards:.1f} ms a "
+        f"forward, weights' init included); flash launches "
+        f"{counts['flash_attention']}, approx_matmul_w4 {counts['approx_matmul_w4']}; "
+        f"drift per unit mae {sens.min():.4g}..{sens.max():.4g}; cost matrix "
+        f"{matrix.shape}, drift {matrix.min():.4g}..{matrix.max():.4g}")
+
+    # 1b. the profile's forwards held against the plain route, on the CLI's
+    # own weights and tokens (seed 0, as the smoke's params).  Two entries
+    # of the cost matrix -- the mildest operator at the least sensitive
+    # layer and the harshest at the most sensitive -- are recomputed
+    # through the kernels, which must give the profile's numbers, and
+    # through the plain version, whose position-0 logits must be equal bit
+    # for bit (attention there returns v exactly on both routes and every
+    # other op is row-wise; later positions differ by the two attention
+    # paths' bf16 roundoff, as in [forward]).  Beside them: each operator's
+    # mae and mean signed error, and the drift at which the output
+    # saturates, between the exact logits of the profile's tokens and of
+    # unrelated ones
+    fwd = forward_fn(cfg.with_approx_mlp())
+    exact = np.broadcast_to(exact_table("mul", 4).astype(np.int32),
+                            (L, 16, 16)).copy()
+
+    def tokens_of(seed: int):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        return torch.randint(0, cfg.vocab_size, (4, 32), generator=g, device="cuda")
+
+    def logits(stack, tokens, backend="auto"):
+        with torch.no_grad():
+            return fwd(cfg.with_approx_mlp(), params, {"tokens": tokens},
+                       lut=stack, backend=backend)[0]
+
+    toks = tokens_of(0)
+    ker_e, ref_e = logits(exact, toks), logits(exact, toks, "ref")
+    require(torch.equal(ker_e[:, 0], ref_e[:, 0]),
+            "cli profile: the exact forward's position-0 logits differ from "
+            "the plain route's")
+    saturated = float((logits(exact, tokens_of(1)) - ker_e).abs().mean())
+    maes = [comp.mae for _, comp in compiled]
+    bias = [float((comp.lut.astype(np.int64) - exact[0]).mean())
+            for _, comp in compiled]
+    mildest = min((m, o) for o, m in enumerate(maes) if m > 0)[1]
+    entries = []
+    for l, o in ((int(np.argmin(sens)), mildest),
+                 (int(np.argmax(sens)), int(np.argmax(maes)))):
+        stack = exact.copy()
+        stack[l] = compiled[o][1].lut
+        k, r = logits(stack, toks), logits(stack, toks, "ref")
+        drift = float((k - ker_e).abs().mean())
+        d0 = float((k[:, 0] - ker_e[:, 0]).abs().mean())
+        require(abs(drift - matrix[l, o]) <= 1e-4,
+                f"cli profile: entry ({l}, {keys[o]}) recomputed {drift}, the "
+                f"profile's {matrix[l, o]}")
+        require(torch.equal(k[:, 0], r[:, 0]) and d0 > 0,
+                f"cli profile: entry ({l}, {keys[o]}): position-0 logits "
+                f"differ from the plain route's, or the table moved nothing "
+                f"(drift {d0})")
+        entries.append({"layer": l, "operator": keys[o], "mae": maes[o],
+                        "drift": drift, "profile_drift": float(matrix[l, o]),
+                        "plain_drift": float((r - ref_e).abs().mean()),
+                        "position0_drift": d0,
+                        "route_gap": float((k - r).abs().mean())})
+        log(f"[cli] profile entry (layer {l}, operator mae {maes[o]:.3f}): "
+            f"kernel route {drift:.6g} (the profile's {matrix[l, o]:.6g}), "
+            f"plain route {entries[-1]['plain_drift']:.6g}; position-0 logits "
+            f"bit-equal across routes, drift there {d0:.4g}; mean |kernel - "
+            f"plain| {entries[-1]['route_gap']:.4g}")
+    noise = float((ker_e - ref_e).abs().mean())
+    pmae = prof.probe_mae[4]
+    out["profile"].update(entries=entries, saturated_drift=saturated,
+                          exact_route_gap=noise, operator_mae=maes,
+                          operator_bias=bias, probe_mae=pmae)
+    log(f"[cli] profile against saturation: exact logits of unrelated tokens "
+        f"differ by {saturated:.6g} mean |dlogit|; the exact forward's mean "
+        f"|kernel - plain| {noise:.4g}; operators' mae "
+        + ", ".join(f"{m:.3f}" for m in maes) + " (mean signed error "
+        + ", ".join(f"{b:+.3f}" for b in bias) + f"), the probe's mae "
+        f"{pmae:.3f}, so probe drifts {pmae * sens.min():.4g}..{pmae * sens.max():.4g}")
+    del ker_e, ref_e, k, r
+    release(torch)
+
+    # 2. the 8-bit probe, not composed from a tile, refused before a forward
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 32), generator=gen,
+                                     device="cuda")}
+    reset_counts()
+    try:
+        profile_cli.measure_profile(cfg.with_approx_mlp(), params, batch, widths=(8,))
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    counts = read_counts()
+    require(refused is not None and "not composed" in refused
+            and not any(counts.values()),
+            f"the W8 probe: refused {refused!r}, launches {counts}")
+    out["w8_probe_refused"] = refused
+    log(f"[cli] ProfileW8Refused: measure_profile(widths=(8,)) raised before any "
+        f"forward (launches {sum(counts.values())}): {refused}")
+
+    # 3. the continuous serve through the launcher: the [continuous] traffic
+    # (its spike's base is 1 arrival a tick, the phase's 2); as in [control],
+    # an unreachable latency target and an unbounded drift budget make the
+    # controller walk the ladder up, so the serve ends on an approximate plan
+    # The launcher keeps its engines to itself, so the launches are held
+    # against what it reports: one capture (trace_count), whose warm-up
+    # launches for real, then one replay a decode step and one a shadow
+    # step (the telemetry's steps, those with a drift reading shadowed)
+    S = 8
+    serve_json = tmp / "serve.json"
+    reset_counts()
+    _, text, secs = call("serve", serve_cli.main, [
+        "--arch", "qwen3-4b", "--library", library, "--profile", tmp / "p.json",
+        "--continuous", "--adaptive", "--qos-class", "gold:1e9@250ms,batch:1e9",
+        "--target-ms-per-step", "1e-6", "--drift-budget", "1e9",
+        "--max-slots", S, "--page-size", 16,
+        "--pages", 54, "--schedule", "spike", "--ticks", 6, "--per-tick", 10,
+        "--steps-per-tick", 16, "--prompt-len", 64, "--prompt-dist",
+        "uniform:16-64", "--gen-len", 32, "--trace", tmp / "trace", "--health",
+        "--telemetry", tmp / "telemetry.json", "--bench-json", serve_json])
+    counts = read_counts()
+    s = json.loads(serve_json.read_text())
+    require(s["trace_count"] == 1 and s["mode"] == "continuous"
+            and "approx_layers" in s
+            and s["requests_complete"] == s["requests_traced"] == s["requests"],
+            "cli serve: " + json.dumps({k: s.get(k) for k in (
+                "trace_count", "mode", "approx_layers", "requests",
+                "requests_traced", "requests_complete")}))
+    tel = json.loads((tmp / "telemetry.json").read_text())
+    steps = [e for e in tel["events"] if "active" in e]   # not the preemptions
+    shadows = sum(e["drift"] is not None for e in steps)
+    replays = len(steps) + shadows
+    require(len(steps) == s["steps"] and shadows >= 1
+            and counts["approx_matmul_w4"] == 3 * L * (replays + _WARMUP)
+            and not any(counts[n] for n in counts if n != "approx_matmul_w4"),
+            f"cli serve launches {counts}, {len(steps)} steps (the summary's "
+            f"{s['steps']}) and {shadows} shadow steps")
+    credit(results, "cli serve", counts, "approx_matmul_w4")
+    # the bench summary's approx_layers counts the engine's startup plan
+    # (ladder level 0, exact), which a class-aware serve keeps, as the
+    # reference does: its steps decode on the classes' levels.  So the
+    # steps' own plans must hold approximate layers
+    approx = [sum(k != "exact" for k in tel["plans"][e["plan"]]["layers"])
+              for e in steps]
+    require(max(approx) >= 1, f"no step of the cli serve decoded on an "
+            f"approximate plan: {sorted(set(approx))}")
+    full = [e for e in steps if sum(e["active"].values()) == S]
+    full_s = sum(e["step_ms"] for e in full) / 1e3
+    rows_s = S * len(full) / full_s if full_s else 0.0
+    lat, ttft = s["latency_ms_per_step"], s["ttft_ms"]
+    main_row = results["continuous"]["main"]
+    ref = main_row["summary"]
+    gap = 100 * (lat["p50"] / ref["latency_ms_per_step"]["p50"] - 1)
+    out["serve"] = {"summary": s, "seconds": secs, "replays": replays,
+                    "shadow_steps": shadows,
+                    "launches": counts["approx_matmul_w4"], "steps_full": len(full),
+                    "full_rows_s": rows_s, "p50_gap_pct": gap}
+    log(f"[cli] serve (--continuous --adaptive, 8 slots, 54 pages of 16, "
+        f"spike 6x10, prompts 16-64, gen 32): {s['requests']} requests, "
+        f"{s['steps']} steps in {secs:.2f} s (init and capture included); ms a "
+        f"step p50 {lat['p50']} p95 {lat['p95']}; decode {s['decode_tok_s']} "
+        f"tok/s; {len(full)} steps at full occupancy, {rows_s:.2f} rows/s; TTFT "
+        f"p50 {ttft['p50']} p95 {ttft['p95']} ms; swaps {s['swaps']} "
+        f"{s['swaps_by_reason']}; {sum(a > 0 for a in approx)} steps on an "
+        f"approximate plan, up to {max(approx)} approx layers (the startup "
+        f"plan's approx_layers {s['approx_layers']}); captured "
+        f"{s['trace_count']}x, approx_matmul_w4 launches "
+        f"{counts['approx_matmul_w4']} = {3 * L} x ({len(steps)} steps + "
+        f"{shadows} shadow steps + {_WARMUP} warm-up); request chains "
+        f"{s['requests_complete']}/{s['requests_traced']}; health "
+        f"{s['health']['state']}")
+    log(f"[cli] beside [continuous]'s engine-level serve of this run: ms a step "
+        f"p50 {ref['latency_ms_per_step']['p50']} p95 "
+        f"{ref['latency_ms_per_step']['p95']} (the launcher's p50 {gap:+.2f}%), "
+        f"decode {ref['decode_tok_s']} tok/s, {main_row['full_rows_s']:.2f} "
+        f"rows/s at full occupancy, TTFT p50 {ref['ttft_ms']['p50']} p95 "
+        f"{ref['ttft_ms']['p95']} ms")
+    release(torch)
+
+    # 4. a W8A8 serve through the launcher: no controller, so no shadow
+    # step; a fixed batch replays the step once a position, prompt and
+    # generation alike
+    w8_json = tmp / "w8.json"
+    reset_counts()
+    _, text, secs = call("serve_w8", serve_cli.main, [
+        "--arch", "qwen3-4b", "--width", 8, "--library", library,
+        "--qos-budget", "1e9", "--batch", 4, "--prompt-len", 16,
+        "--gen-len", 16, "--bench-json", w8_json])
+    counts = read_counts()
+    w8 = json.loads(w8_json.read_text())
+    require(w8["width_bits"] == 8 and w8["approx_layers"] >= 1
+            and w8["trace_count"] == 1 and "serving W8A8" in text,
+            "cli serve w8: " + json.dumps({k: w8.get(k) for k in (
+                "width_bits", "approx_layers", "trace_count")}))
+    replays = w8["batches"] * (16 + 16)
+    require(counts["approx_matmul_w8"] == 3 * L * (replays + _WARMUP)
+            and not any(counts[n] for n in counts if n != "approx_matmul_w8"),
+            f"cli serve w8 launches {counts}, {w8['batches']} batch(es) of "
+            f"32 replays")
+    credit(results, "cli serve w8", counts, "approx_matmul_w8")
+    out["serve_w8"] = {"summary": w8, "seconds": secs, "replays": replays,
+                       "launches": counts["approx_matmul_w8"]}
+    log(f"[cli] serve --width 8 (batch 4, prompt 16, gen 16): {w8['approx_layers']} "
+        f"approx layers, {w8['ms_per_step']:.2f} ms a step, decode "
+        f"{w8['decode_tok_s']:.2f} tok/s, {secs:.2f} s; captured "
+        f"{w8['trace_count']}x, approx_matmul_w8 launches "
+        f"{counts['approx_matmul_w8']} = {3 * L} x ({replays} replays + {_WARMUP} "
+        f"warm-up)")
+    release(torch)
+
+    # 5. the inspector over the serve's trace: every gate exits 0
+    shutil.copy(serve_json, tmp / "base" / "serve.json")
+    trace = ["--trace", tmp / "trace"]
+    rcs = {}
+    for name, argv in [
+            ("summary", ["summary", *trace]),
+            ("requests", ["requests", *trace, "--require-complete"]),
+            ("provenance", ["provenance", *trace]),
+            ("costs", ["costs", *trace, "--require-reconciled"]),
+            ("health", ["health", "--bench", serve_json, "--max-state", "page"]),
+            ("export", ["export", *trace, "--format", "chrome",
+                        "--out", tmp / "chrome.json"]),
+            ("diff", ["diff", "--bench", serve_json, "--baseline-dir", tmp / "base"])]:
+        rcs[name], text, _ = call(f"obs_{name}", inspect_cli.main, argv)
+        require(rcs[name] == 0, f"python -m repro_torch.obs {name} exited "
+                f"{rcs[name]}: {text[-500:]}")
+    n_events = len(json.loads((tmp / "chrome.json").read_text())["traceEvents"])
+    out["obs"] = {"rcs": rcs, "chrome_events": n_events}
+    log(f"[cli] python -m repro_torch.obs over the serve's trace: "
+        + ", ".join(f"{n} {rc}" for n, rc in rcs.items())
+        + f" (exit codes); {n_events} Chrome trace events")
+
+
+# ---------------------------------------------------------------------------
 # phases 4-6: the main paths at full width
 # ---------------------------------------------------------------------------
 def credit(results: dict, path: str, counts: dict, *names: str) -> None:
@@ -2074,7 +2391,8 @@ def main() -> int:
               ("control", lambda: phase_control(torch, cfg, params, library, results)),
               ("continuous", lambda: phase_continuous(torch, cfg, params, library, results)),
               ("serve", lambda: phase_serve(torch, cfg, params, results)),
-              ("forward", lambda: phase_forward(torch, cfg, params, results))]
+              ("forward", lambda: phase_forward(torch, cfg, params, results)),
+              ("cli", lambda: phase_cli(torch, cfg, params, library, results))]
     for name, run in phases:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()

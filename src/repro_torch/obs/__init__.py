@@ -4,9 +4,11 @@
 the SLO health plane (:mod:`.health` over :mod:`.anomaly` and the flight
 recorder :mod:`.flight`), request lifecycles (:mod:`.requests`), the
 approximation-provenance ledger (:mod:`.provenance`) and the cost plane
-over it (:mod:`.costs`), each an own copy of the reference's module.  The
-rest of ``repro.obs`` (the HTTP endpoint, the Perfetto export, the
-regression sentinel and the ``__main__`` inspector) is not ported yet.
+over it (:mod:`.costs`), the bench regression sentinel (:mod:`.regress`),
+the live ``/metrics``, ``/healthz`` and ``/costs.json`` endpoint
+(:mod:`.httpd`), the Chrome trace-event export (:mod:`.perfetto`) and
+the inspector ``python -m repro_torch.obs``, each an own copy of the
+reference's module.
 
 Stdlib-only: importable before torch or numpy enter the process.
 """
@@ -51,9 +53,12 @@ from .health import (
     state_rank,
 )
 from .flight import FlightRecorder, read_postmortems
+from .regress import Rule, compare_bench, flatten, load_rules
 from .provenance import ProvenanceLedger, audit, ledger_for, read_ledger
 from .requests import BREAKDOWN_KEYS, RequestTimeline, build_timelines, critical_path
 from .costs import cost_report, mlp_macs_per_layer, plan_cost_row
+from .httpd import MetricsServer
+from .perfetto import chrome_trace, export_chrome
 
 __all__ = [
     "Counter",
@@ -87,6 +92,10 @@ __all__ = [
     "state_rank",
     "FlightRecorder",
     "read_postmortems",
+    "Rule",
+    "compare_bench",
+    "flatten",
+    "load_rules",
     "ProvenanceLedger",
     "audit",
     "ledger_for",
@@ -98,4 +107,7 @@ __all__ = [
     "cost_report",
     "mlp_macs_per_layer",
     "plan_cost_row",
+    "MetricsServer",
+    "chrome_trace",
+    "export_chrome",
 ]

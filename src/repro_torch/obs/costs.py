@@ -30,9 +30,7 @@ tile ``gen_len × Σ_layers macs_per_layer`` — the ledger ranges cover
 **audit failure** (``reconciled: false``, CI gates on it), never a
 warning.  Everything here is stdlib-only and offline: the engine writes
 ``model`` and enriched ``plan`` records into the ledger, so a report
-needs nothing but the files.  Own copy of ``repro.obs.costs`` without
-its ``render_report`` table, which comes with the port's ``obs``
-inspector.
+needs nothing but the files.  Own copy of ``repro.obs.costs``.
 """
 
 from __future__ import annotations
@@ -40,6 +38,7 @@ from __future__ import annotations
 __all__ = [
     "mlp_macs_per_layer",
     "plan_cost_row",
+    "render_report",
     "cost_report",
 ]
 
@@ -253,3 +252,43 @@ def cost_report(records: list[dict]) -> dict:
     out["requests"] = requests
     out["problems"] = problems
     return out
+
+
+def render_report(rep: dict) -> str:
+    """Human-readable costs table for the CLI."""
+    lines: list[str] = []
+    if "model" not in rep:
+        lines.append("cost report: no model record")
+        for p in rep.get("problems", ()):
+            lines.append(f"  ! {p}")
+        return "\n".join(lines)
+    m = rep["model"]
+    lines.append(f"model {m['name']}: {m['n_layers']} layers, "
+                 f"{m['macs_per_token']} LUT-routable MACs/token")
+    t = rep["totals"]
+    lo, hi = t["area_mac_saved"]
+    lines.append(
+        f"requests {rep['n_requests']} (done {rep['n_done']}, complete "
+        f"{rep['n_complete']})  reconciled={str(rep['reconciled']).lower()}")
+    lines.append(f"tokens {t['tokens']}  mlp_macs {t['mlp_macs']}  "
+                 f"approx_macs {t['approx_macs']} "
+                 f"({100 * t.get('approx_frac', 0.0):.1f}%)")
+    lines.append(f"area·MAC saved [{lo:.1f}, {hi:.1f}] µm²·MAC")
+    hdr = f"  {'class':<10} {'tokens':>7} {'approx_macs':>12} " \
+          f"{'saved_lo':>14} {'saved_hi':>14}"
+    if rep["classes"]:
+        lines.append(hdr)
+        for cls, row in rep["classes"].items():
+            clo, chi = row["area_mac_saved"]
+            lines.append(f"  {cls:<10} {row['tokens']:>7} "
+                         f"{row['approx_macs']:>12} {clo:>14.1f} {chi:>14.1f}")
+    if rep.get("replicas"):
+        lines.append(f"  {'replica':<10} {'tokens':>7} {'approx_macs':>12} "
+                     f"{'saved_lo':>14} {'saved_hi':>14}")
+        for name, row in rep["replicas"].items():
+            clo, chi = row["area_mac_saved"]
+            lines.append(f"  {name:<10} {row['tokens']:>7} "
+                         f"{row['approx_macs']:>12} {clo:>14.1f} {chi:>14.1f}")
+    for p in rep.get("problems", ()):
+        lines.append(f"  ! {p}")
+    return "\n".join(lines)

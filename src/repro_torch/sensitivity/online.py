@@ -1,7 +1,6 @@
 """Online per-layer sensitivity estimation from shadow-step samples.
 
-Own copy of ``repro.sensitivity.online``; seeding from a measured profile
-(:meth:`OnlineSensitivity.from_profile`) waits for the profile module.
+Own copy of ``repro.sensitivity.online``.
 
 The serving engine already measures real logit drift every
 ``shadow_every`` batches (live stack vs exact stack on cache copies).
@@ -50,10 +49,14 @@ class OnlineSensitivity:
     @classmethod
     def from_profile(cls, profile, bits, *, alpha: float = 0.25,
                      width_map=None) -> "OnlineSensitivity":
-        """Seed from an offline sensitivity profile: not ported yet."""
-        raise NotImplementedError(
-            "a measured sensitivity profile is not ported to PyTorch yet; "
-            "ROADMAP.md §1 item 3, sensitivity/profile.py")
+        """Seed from an offline :class:`~repro_torch.sensitivity.profile.SensitivityProfile`
+        -- per-width, or per-layer-width under a mixed ``width_map``."""
+        if width_map is not None:
+            init = np.array([profile.sensitivities(b)[l]
+                             for l, b in enumerate(width_map)])
+            return cls(len(width_map), alpha=alpha, init=init)
+        return cls(profile.n_layers, alpha=alpha,
+                   init=profile.sensitivities(bits))
 
     def update(self, maes, drift: float) -> None:
         """Fold one shadow sample in.  ``maes[l]`` is the compiled-table

@@ -326,9 +326,9 @@ class ServingEngine:
     Without ``luts`` and ``plan`` the MLP matmuls are exact.
     ``backend="ref"`` runs the plain version of every kernel (the tests
     and ``chip_smoke.py`` hold the kernels against it); it is captured
-    the same way.
-
-    A measured ``sens_profile`` is not ported yet and raises.
+    the same way.  A measured ``sens_profile``
+    (:class:`~repro_torch.sensitivity.profile.SensitivityProfile`) prices
+    the frontiers a refresh adopts (:func:`~repro_torch.sensitivity.profile.costs_for`).
     """
 
     def __init__(self, cfg, params, *, batch: int, prompt_len: int,
@@ -337,10 +337,6 @@ class ServingEngine:
                  width_map=None, sens_profile=None, luts=None,
                  backend: ops.Backend = "auto",
                  device: str | torch.device = "cuda") -> None:
-        if sens_profile is not None:
-            raise NotImplementedError(
-                "a measured sensitivity profile is not ported to PyTorch "
-                "yet; ROADMAP.md §1 item 3, sensitivity/profile.py")
         self.cfg = cfg
         self.params = params
         self.device = resolve_device(device)
@@ -377,6 +373,11 @@ class ServingEngine:
                           else np.asarray(sensitivities, dtype=np.float64))
         self._width_map = (tuple(int(b) for b in width_map)
                            if width_map is not None else None)
+        # measured SensitivityProfile (optional): refresh paths re-price
+        # measured cost matrices against the refreshed frontier through it
+        # -- a stale (L, O) matrix cannot follow a frontier whose operator
+        # set a background fleet sweep just changed
+        self._profile = sens_profile
         self._mae_by_key = {rec.key: comp.mae for rec, comp in self._compiled}
         self._area_hi_by_key = _area_hi_map(self._compiled)
 
@@ -606,16 +607,28 @@ class ServingEngine:
 
     def _uniform_sens(self, compiled):
         """Measured pricing for a refreshed uniform-width frontier, or
-        ``None`` (the caller keeps its own sensitivity model): without a
-        measured profile, which is not ported yet, always ``None``."""
-        return None
+        ``None`` when there is no profile (the caller keeps its own
+        sensitivity model)."""
+        if self._profile is None:
+            return None
+        from ..sensitivity.profile import costs_for
+
+        return costs_for(self._profile, self.width.bits, compiled,
+                         self.cfg.n_layers)
 
     def _mixed_sens(self, mixed):
-        """Per-width pricing for a refreshed mixed frontier: the
-        constructor's sensitivity model (vectors follow any frontier; a
-        caller-supplied measured matrix cannot, and the resulting
-        ValueError makes the watcher skip the refresh)."""
-        return self._sens
+        """Per-width pricing for a refreshed mixed frontier: measured via
+        the profile when present, else the constructor's sensitivity
+        model (vectors follow any frontier; a caller-supplied measured
+        matrix cannot, and the resulting ValueError makes the watcher
+        skip the refresh)."""
+        if self._profile is None:
+            return self._sens
+        from ..sensitivity.profile import costs_for
+
+        return {bits: costs_for(self._profile, bits, fr.compiled,
+                                self.cfg.n_layers)
+                for bits, fr in mixed.by_width.items()}
 
     def _plan_maes(self, plan: LayerPlan) -> np.ndarray:
         """Per-layer operator mae of a plan (0 for exact layers) -- the

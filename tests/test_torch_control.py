@@ -298,8 +298,22 @@ def test_online_sensitivity_matches_reference():
     assert got["port"] == got["ref"]
     assert got["port"][1] == 48 and got["port"][3] == 0
     np.testing.assert_allclose(got["port"][0][-1], true, rtol=0.1)
-    with pytest.raises(NotImplementedError, match="profile"):
-        port_sens.OnlineSensitivity.from_profile(object(), 4)
+
+    # seeded from a measured profile: per width, or per layer under a width
+    # map (tests/test_sensitivity.py::test_online_ignores_exact_samples_and_seeds_from_profile)
+    def seeded(_, sens, __):
+        prof = sens.SensitivityProfile(model="m", n_layers=2,
+                                       sens={4: np.array([2.0, 0.5]),
+                                             8: np.array([1.0, 1.0])})
+        est = sens.OnlineSensitivity.from_profile(prof, 4)
+        est.update(np.zeros(2), 123.0)          # all-exact: no signal
+        mixed = sens.OnlineSensitivity.from_profile(prof, None, width_map=(4, 8),
+                                                    alpha=0.5)
+        return (est.sensitivities().tolist(), est.n_updates,
+                mixed.sensitivities().tolist(), mixed.alpha)
+
+    got = _both(seeded)
+    assert got["port"] == got["ref"] == ([2.0, 0.5], 0, [2.0, 1.0], 0.5)
 
 
 # ---------------------------------------------------------------------------

@@ -402,11 +402,18 @@ def test_e2e_drill_spike_pages_and_attributes_to_swap(lib, tmp_path):
         elif step == inject_at + 4:
             e.inject_step_delay = 0.0
 
+    # one intra-op thread: the reduced model's tensors are tiny, and threads
+    # that wait on cores the suite's other workers hold stall a step by
+    # tens of ms, which fires the detector before the drill and holds it
+    # refractory through the spike
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
     try:
         tel = eng.serve(prof, scheduler=ClassScheduler(book, ladder, shadow_every=4),
                         telemetry=port_serving.Telemetry(), seed=0, steps_per_tick=5,
                         health=hp, on_step_end=chaos)
     finally:
+        torch.set_num_threads(threads)
         port_trace.reset(clear_env=True)
     assert eng.trace_count == 1 and len(eng.completions) == prof.total_requests
     assert eng._alloc.used_pages == 0

@@ -26,7 +26,7 @@ def test_port_imports_no_jax_and_no_reference():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True,
                          env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""})
-    assert int(out.stdout.strip()) >= 59  # every module of slices 1 to 8
+    assert int(out.stdout.strip()) >= 67  # every module of slices 1 to 9
 
 
 def test_port_sources_name_no_jax_import():
@@ -58,6 +58,13 @@ def test_default_device_entry_points_raise_without_a_card(monkeypatch):
     from repro_torch.models import forward_fn
     with pytest.raises(RuntimeError, match="no CUDA device"):
         forward_fn(cfg)(cfg, params, {"tokens": [[1, 2]]})
+    # the command-line entry points: no --device means the card
+    from repro_torch.launch import serve
+    from repro_torch.sensitivity import profile
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--reduced", "--batch", "1", "--prompt-len", "2", "--gen-len", "2"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        profile.main(["--reduced", "--widths", "4", "--out", "unused.json"])
 
 
 def test_search_entry_points_raise_without_a_card(monkeypatch):

@@ -21,6 +21,7 @@ from repro.configs import get_config as jax_config  # noqa: E402
 from repro.library import select_plan, stack_luts  # noqa: E402
 from repro.library.compile import load_mul_frontier  # noqa: E402
 from repro.models import init_model as jax_init  # noqa: E402
+from repro.sensitivity import profile as jax_profile  # noqa: E402
 from repro.serving import ServingEngine as JaxEngine  # noqa: E402
 from repro.serving.loadgen import steady as jax_steady  # noqa: E402
 from repro.serving.loadgen import synth_requests as jax_synth  # noqa: E402
@@ -33,6 +34,7 @@ from repro_torch.library import select_plan as tselect_plan  # noqa: E402
 from repro_torch.library import stack_luts as tstack_luts  # noqa: E402
 from repro_torch.library.compile import load_mul_frontier as tload_mul_frontier  # noqa: E402
 from repro_torch.precision.plans import build_mixed_ladder, load_mixed_frontier  # noqa: E402
+from repro_torch.sensitivity import profile as port_profile  # noqa: E402
 from repro_torch.serving import (PlanLadder, ServingEngine, steady,  # noqa: E402
                                  synth_requests)
 from test_sensitivity import mixed_library  # noqa: E402,F401  (fixture)
@@ -263,7 +265,7 @@ def test_mixed_plan_engine_matches_jax_engine_across_swaps(mixed_library):
 
 
 def test_plan_engine_refusals(two_op_library):
-    _, ct, _, pt = _pair_models(4)
+    cj, ct, params, pt = _pair_models(4)
     compiled, exact_area, _ = tload_mul_frontier(two_op_library)
     plan = tselect_plan(compiled, np.ones(ct.n_layers), 0.0, exact_area=exact_area)
     kw = dict(batch=2, prompt_len=PROMPT, gen_len=GEN, device="cpu")
@@ -276,8 +278,25 @@ def test_plan_engine_refusals(two_op_library):
 
     pe.serve(steady(1, 1, prompt_len=PROMPT, gen_len=GEN), health=_Health())
     assert observed == [0]
-    with pytest.raises(NotImplementedError, match="sensitivity"):
-        ServingEngine(ct, pt, plan=plan, compiled=compiled, sens_profile=object(), **kw)
+    # a sens_profile= engine prices a refreshed frontier by the profile:
+    # its measured column where it covers the operator, its linear model
+    # elsewhere, as the reference engine does
+    doc = {"model": "m", "n_layers": ct.n_layers, "sens": {"4": [3.0, 0.25]},
+           "costs": {"4": {"keys": [compiled[0][0].key], "matrix": [[0.0], [9.0]]}}}
+    jc, jarea, _ = load_mul_frontier(two_op_library)
+    ones = np.ones(ct.n_layers)
+    je = JaxEngine(cj, params, batch=2, prompt_len=PROMPT, gen_len=GEN,
+                   plan=select_plan(jc, ones, 1.0, exact_area=jarea),
+                   compiled=jc, exact_area=jarea,
+                   sens_profile=jax_profile.SensitivityProfile.from_doc(doc))
+    pe = ServingEngine(ct, pt, plan=tselect_plan(compiled, ones, 1.0, exact_area=exact_area),
+                       compiled=compiled, exact_area=exact_area,
+                       sens_profile=port_profile.SensitivityProfile.from_doc(doc), **kw)
+    want, got = je._uniform_sens(jc), pe._uniform_sens(compiled)
+    assert np.array_equal(got, want) and got[1, 0] == 9.0
+    assert pe.refresh_library(compiled, exact_area) == je.refresh_library(jc, jarea)
+    assert pe.plan.plan_id == je.plan.plan_id
+    assert [c.key for c in pe.plan.choices] == [compiled[0][0].key, None]
     with pytest.raises(ValueError, match="not both"):
         ServingEngine(ct, pt, plan=plan, compiled=compiled,
                       luts=tstack_luts(plan, compiled), **kw)
