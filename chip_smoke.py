@@ -17,9 +17,16 @@ failing the run on any mismatch:
    ``load_mul_frontier`` to a 16x16 LUT that full-width qwen3-4b serves at
    W4A4, with tokens and the first position's logits identical to the
    plain LUT matmul's;
-   the QoS read path (``[plans]`` lines): the baseline engines
-   (``get_engine("muscat" | "mecals" | "anneal")``) add their results to
-   that library, and ``muscat_like`` finds the system test's sound,
+   the fleet (``[fleet]`` lines): ``python -m repro_torch.fleet --sweep
+   8bit`` in this process fills that library, its CPU jobs on a spawned
+   pool (CUDA is up) and its tensor jobs on the card, each through
+   ``template_eval`` (launches = the sum of generations + 1 over them),
+   inside a traced ``fleet.job`` span; a second call skips every job; with
+   the receipts deleted a third adds no record; ``python -m
+   repro_torch.core.search --method tensor`` runs on the card;
+   the QoS read path (``[plans]`` lines): the rewrite engines
+   (``get_engine("muscat" | "mecals")``) add the 4-bit multipliers at the
+   two ETs past the sweep's grid, and ``muscat_like`` finds the system test's sound,
    smaller multiplier; a W4A4 ``plan_ladder`` priced by sensitivities
    measured through ``forward_lm`` serves at two levels through
    ``ServingEngine(plan=...)`` with a ``swap_plan`` between them that
@@ -62,7 +69,17 @@ failing the run on any mismatch:
    traffic with classes, a controller, the profile, a trace and the health
    plane (one capture, every request chain complete, launches 108 a replay)
    and at W8A8, and the inspector's gates over that trace, each exiting 0;
-8. print the kernels line (launches on the main path, deviations, times,
+8. serve gemma3-1b, the reference's default model, at full width from the
+   fleet's library (``[gemma3]`` lines): ``forward_lm`` at B=2 S=1024 on
+   the cheapest sound operator at W4A4, 26 flash launches (its 22 local
+   layers at window 512) and 78 W4A4 ones, position 0 bit-equal to the
+   plain route; one local layer's attention within 2e-2 of the plain
+   version; the launcher at W8A8 (78 launches a replay, captured once); a
+   continuous W4A4 serve over 22 rings and 4 paged layers, captured once,
+   equal to the plain route; the profiler's ``main`` with its default
+   arch; and ``python -m repro_torch.examples.{approx_inference,
+   serve_batch}``;
+9. print the kernels line (launches on the main path, deviations, times,
    bounds), where a decode step's time goes, the card's name and power
    limit, and a last line of JSON.
 
@@ -98,10 +115,13 @@ PEAK_OPS = {"int8": 1979e12, "bf16": 989e12, "f32": 67e12,
 # qwen3-4b MLP matmul shapes: decode (M = the fixed engine's batch of 4
 # and the continuous engine's 8 slots), the profiler's B=4 x S=32 forwards
 # (M = 128) and the B=2 x S=512 forward (M = 1024), for w1/w3 (K=d_model)
-# and w2 (K=d_ff)
+# and w2 (K=d_ff); then gemma3-1b's (d_model 1152, d_ff 6912): its W8A8
+# serve at batch 4 and its B=2 x S=1024 forward (M = 2048)
 MM_SHAPES = [(4, 2560, 9728), (4, 9728, 2560), (8, 2560, 9728),
              (8, 9728, 2560), (128, 2560, 9728), (128, 9728, 2560),
-             (1024, 2560, 9728), (1024, 9728, 2560)]
+             (1024, 2560, 9728), (1024, 9728, 2560),
+             (4, 1152, 6912), (4, 6912, 1152), (2048, 1152, 6912),
+             (2048, 6912, 1152)]
 # the kernels line reports each LUT matmul at the rows of the paths that
 # launch it most: the continuous serve's 8 slots at W4A4; at W8A8 both
 # paths (the fixed batch and the continuous serve) run 4 rows
@@ -118,9 +138,10 @@ MM_EDGES = ([(M, 300, 200) for M in (1, 4, 8, 9, 63, 64, 65, 256, 1024)]
 MM_OVERFLOW = (3, 29140, 70)
 # (B, H, Hkv, Lq, Lk, D, dtype, window, causal): the profiler's forward
 # (the whole sequence inside one partial key tile and one partial query
-# block), the main path's prefill shape, a kv prefix, windows, head dims 64
-# and 256, non-causal, ragged lengths, and Lk < Lq, whose first rows see
-# no key
+# block), the main path's prefill shape, a kv prefix, windows, gemma3-1b's
+# forward (its local layers at window 512 and its global ones), head dims
+# 64 and 256, non-causal, ragged lengths, Lk < Lq, whose first rows see no
+# key, and the reduced models' head dims 16 and 32
 FLASH_CASES = [
     (4, 32, 8, 32, 32, 128, "bfloat16", None, True),
     (2, 32, 8, 512, 512, 128, "bfloat16", None, True),
@@ -134,12 +155,18 @@ FLASH_CASES = [
     (1, 4, 2, 100, 300, 128, "bfloat16", None, True),
     (2, 8, 4, 512, 512, 64, "bfloat16", None, True),     # hymba's head dim
     (2, 8, 4, 512, 512, 64, "float32", None, True),
+    (2, 4, 1, 1024, 1024, 256, "bfloat16", 512, True),   # gemma3-1b's forward:
+    (2, 4, 1, 1024, 1024, 256, "bfloat16", None, True),  # local and global
     (2, 8, 1, 512, 512, 256, "bfloat16", None, True),    # gemma3's head dim
     (2, 8, 1, 512, 512, 256, "float32", 200, True),
     (1, 8, 2, 333, 333, 256, "bfloat16", None, False),   # non-causal, ragged
     (1, 8, 2, 333, 333, 128, "float32", None, False),
     (1, 8, 2, 300, 100, 128, "bfloat16", None, True),    # 200 rows see no key
     (1, 8, 2, 300, 100, 64, "float32", 64, True),
+    (4, 4, 2, 32, 32, 16, "bfloat16", None, True),       # the reduced models'
+    (4, 4, 2, 32, 32, 16, "float32", None, True),        # head dims, run
+    (4, 2, 1, 32, 32, 32, "bfloat16", 16, True),         # zero-padded on the
+    (4, 2, 1, 32, 32, 32, "float32", None, True),        # D = 64 kernel
 ]
 # timed, in this order (the profiler's shape first, which carries most of
 # flash's launches: the kernels line takes the first row of each kernel)
@@ -147,7 +174,9 @@ FLASH_TIMED = [(4, 32, 8, 32, 32, 128, "bfloat16", None, True),
                (2, 32, 8, 512, 512, 128, "bfloat16", None, True),
                (1, 32, 8, 128, 384, 128, "bfloat16", None, True),
                (2, 32, 8, 512, 512, 128, "bfloat16", 128, True),
-               (2, 32, 8, 512, 512, 128, "float32", None, True)]
+               (2, 32, 8, 512, 512, 128, "float32", None, True),
+               (2, 4, 1, 1024, 1024, 256, "bfloat16", 512, True),
+               (2, 4, 1, 1024, 1024, 256, "bfloat16", None, True)]
 FLASH_TOL = {"bfloat16": 2e-2, "float32": 2e-5}
 # template_eval (benchmark, or "n<inputs>m<outputs>" for a made-up function
 # on the full truth tables, or "n<inputs>m<outputs>w<words>" on that many
@@ -186,12 +215,12 @@ SMOKE_TENSOR = {"population": 512, "generations": 24, "elites": 64, "keep": 4}
 SEARCH_JOBS = [("mul", 2, 1, SMOKE_TENSOR), ("mul", 2, 2, SMOKE_TENSOR),
                ("mul", 4, 28, {}), ("mul", 4, 56, {})]
 SEARCH_BUDGET_S = 600.0
-# the baseline engines' jobs of the fleet's 8-bit sweep (repro/fleet/plan.py):
-# the rewrite engines on the 4-bit multiplier, annealing on the 2-bit one,
-# with its step options; the budget is a safety net the steps always beat
-BASELINE_JOBS = [(name, 4, et) for name in ("muscat", "mecals") for et in (4, 28, 56)] \
-    + [("anneal", 2, 1), ("anneal", 2, 2)]
-ANNEAL_OPTS = {"steps": 6000, "restarts": 3, "keep": 3}
+# the fleet's 8-bit sweep fills the library through its CLI ([fleet]); the
+# rewrite engines on the 4-bit multiplier at the two ETs of the tensor
+# jobs past its grid (1, 2, 4, 8) add to it ([plans]); the budget is a
+# safety net the rewrites always beat
+FLEET_SWEEP = "8bit"
+BASELINE_JOBS = [(name, 4, et) for name in ("muscat", "mecals") for et in (28, 56)]
 BASELINE_BUDGET_S = 600.0
 
 
@@ -541,13 +570,18 @@ def template_eval_bound(lits, sel, W: int, S: int) -> tuple[float, str]:
 
 
 def search_shapes() -> list[tuple[str, int, int]]:
-    """(benchmark, T, P) of every search job's template_eval calls: T is
-    the job's pit or 2 m, P its population, at tensor_search's defaults
-    where the job sets none."""
+    """(benchmark, T, P) of every search job's template_eval calls, those
+    of [search] and the tensor jobs of the fleet's sweep: T is the job's
+    pit or 2 m, P its population, at tensor_search's defaults where the
+    job sets none."""
     from repro_torch.core.engine import SearchJob
+    from repro_torch.fleet.plan import SWEEPS, plan_jobs
 
+    sweep = SWEEPS[FLEET_SWEEP]
+    fleet = [(j.benchmark, j.bits, j.et, sweep.engine_opts["tensor"])
+             for j in plan_jobs(sweep) if j.engine == "tensor"]
     shapes = []
-    for kind, bits, et, opts in SEARCH_JOBS:
+    for kind, bits, et, opts in SEARCH_JOBS + fleet:
         exact = SearchJob(kind, bits, et, "tensor").exact()
         opts = search_defaults() | opts
         shape = (exact.name, opts["pit"] or 2 * exact.n_outputs,
@@ -869,6 +903,159 @@ def phase_search_serve(torch, cfg, params, library: Path, results: dict) -> None
 
 
 # ---------------------------------------------------------------------------
+# phase 3a: the fleet fills the library through its CLI
+# ---------------------------------------------------------------------------
+def phase_fleet(torch, library: Path, results: dict) -> None:
+    """``python -m repro_torch.fleet --sweep 8bit`` in this process, into the
+    library [search] filled: CUDA is up, so its CPU jobs run on a spawned
+    pool while its tensor jobs run here on the card; a second call resumes
+    with every job skipped; with the receipts deleted, a third call re-runs
+    every job and adds no record (the searches are deterministic on the
+    card too).  Then ``python -m repro_torch.core.search --method tensor``
+    on the card, into a library of its own."""
+    import re
+
+    from repro_torch.core.search import main as search_main
+    from repro_torch.fleet import __main__ as fleet_cli
+    from repro_torch.fleet.plan import SWEEPS, plan_jobs
+    from repro_torch.fleet.worker import RECEIPT_DIR
+    from repro_torch.library.store import OperatorStore
+    from repro_torch.obs.trace import read_trace
+
+    out: dict = {}
+    results["fleet"] = out
+    spec = SWEEPS[FLEET_SWEEP]
+    jobs = plan_jobs(spec)
+    tensor_opts = spec.engine_opts["tensor"]
+    anneal_opts = spec.engine_opts["anneal"]
+    trace_dir = ROOT / "build" / "fleet_trace"
+    shutil.rmtree(trace_dir, ignore_errors=True)
+    store = OperatorStore(library)
+    report = re.compile(r"jobs: (\d+) ok, (\d+) resumed/skipped, (\d+) failed; "
+                        r"(\d+) operator\(s\) added under (\d+) signature\(s\)")
+
+    def sweep(n: int, *extra):
+        n_before = len(store)
+        reset_counts()
+        rc, text, secs = run_cli(torch, f"fleet_{n}", fleet_cli.main, [
+            "--library", library, "--sweep", FLEET_SWEEP, *extra])
+        counts = read_counts()
+        m = report.search(text)
+        require(m is not None, f"fleet call {n}: no report line:\n{text[-2000:]}")
+        ok, skipped, failed, added, sigs = (int(x) for x in m.groups())
+        pool = re.search(r"fleet: (\d+) CPU job\(s\) on a (\w+) pool", text)
+        wall = re.search(r"frontier densification \(([\d.]+)s wall\)", text)
+        return {"rc": rc, "ok": ok, "skipped": skipped, "failed": failed,
+                "added": added, "signatures": sigs, "stored": len(store) - n_before,
+                "pool": pool.group(2) if pool else None, "seconds": secs,
+                "report_wall_s": float(wall.group(1)), "counts": counts, "text": text}
+
+    # 1. the sweep
+    first = sweep(1, "--min-new", 1, "--trace", trace_dir)
+    receipts = [json.loads(p.read_text())
+                for p in sorted((library / RECEIPT_DIR).glob("*.json"))
+                if p.name != "last_update.json"]
+    tensor_r = [r for r in receipts if r["job"]["engine"] == "tensor"]
+    anneal_r = [r for r in receipts if r["job"]["engine"] == "anneal"]
+    expected = sum(r["stats"]["generations"] + 1 for r in tensor_r)
+    require(first["rc"] == 0 and first["ok"] == len(jobs) == len(receipts)
+            and first["failed"] == 0 and first["added"] >= 1,
+            f"fleet call 1: {({k: v for k, v in first.items() if k != 'text'})}")
+    require(first["pool"] == "spawn", f"fleet call 1 ran its CPU jobs on a "
+            f"{first['pool']} pool, not a spawned one (CUDA is up)")
+    require(all(r["status"] == "ok" for r in receipts)
+            and all(r["stats"]["generations"] == tensor_opts["generations"] for r in tensor_r)
+            and all(r["stats"]["steps"] == anneal_opts["steps"] * anneal_opts["restarts"]
+                    for r in anneal_r),
+            "fleet call 1: a job was cut by its budget (tensor generations "
+            f"{[r['stats']['generations'] for r in tensor_r]}, anneal steps "
+            f"{[r['stats']['steps'] for r in anneal_r]})")
+    c = first["counts"]
+    require(c["template_eval"] == expected and expected > 0
+            and not any(c[k] for k in c if k != "template_eval"),
+            f"fleet call 1 launches {c}, expected template_eval {expected} = sum of "
+            f"(generations + 1) over {len(tensor_r)} tensor jobs")
+    credit(results, "fleet", c, "template_eval")
+    spans = read_trace(trace_dir)
+    fleet_spans = {s_["id"]: s_ for s_ in spans if s_["name"] == "fleet.job"}
+    runs = [s_ for s_ in spans if s_["name"] == "search.run"]
+    require(len(fleet_spans) == len(jobs) and len(runs) == len(jobs)
+            and all(s_["parent"] in fleet_spans
+                    and fleet_spans[s_["parent"]]["attrs"]["engine"] == s_["attrs"]["engine"]
+                    for s_ in runs),
+            f"fleet trace: {len(fleet_spans)} fleet.job spans, {len(runs)} search.run "
+            f"spans, for {len(jobs)} jobs")
+    engine_s = {}
+    for r in receipts:
+        engine_s.setdefault(r["job"]["engine"], []).append(r["engine_s"])
+    log(f"[fleet] python -m repro_torch.fleet --sweep {FLEET_SWEEP} --min-new 1 "
+        f"--trace: {first['ok']} jobs ok, {first['skipped']} skipped, "
+        f"{first['failed']} failed; {first['added']} operators added under "
+        f"{first['signatures']} signatures ({len(store)} records in the library); "
+        f"CPU jobs on a {first['pool']} pool; sweep {first['report_wall_s']:.1f} s "
+        f"(its report), call {first['seconds']:.2f} s; template_eval launches "
+        f"{c['template_eval']} = sum of (generations + 1) over {len(tensor_r)} "
+        f"tensor jobs; engine seconds by engine "
+        + ", ".join(f"{e} {sum(v):.2f} ({len(v)} jobs)" for e, v in engine_s.items())
+        + f"; trace: {len(runs)} search.run spans, each inside its fleet.job span")
+    for line in first["text"].splitlines():
+        if line.startswith("  signature") or re.match(r"  mul\db_", line):
+            log(f"[fleet]   {line.strip()}")
+
+    # 2. resumed: every job skipped
+    second = sweep(2)
+    require(second["rc"] == 0 and second["skipped"] == len(jobs) and second["ok"] == 0
+            and second["added"] == 0 and second["stored"] == 0
+            and not any(second["counts"].values()),
+            f"fleet call 2: {({k: v for k, v in second.items() if k != 'text'})}")
+    log(f"[fleet] resumed: {second['skipped']} jobs skipped, {second['added']} added, "
+        f"no kernel launched, {second['seconds']:.2f} s")
+
+    # 3. the receipts deleted: every job runs again and adds nothing
+    for p in (library / RECEIPT_DIR).glob("*.json"):
+        p.unlink()
+    third = sweep(3)
+    c3 = third["counts"]
+    require(third["rc"] == 0 and third["ok"] == len(jobs) and third["added"] == 0
+            and third["stored"] == 0 and c3["template_eval"] == expected,
+            f"fleet call 3 (receipts deleted): "
+            f"{({k: v for k, v in third.items() if k != 'text'})}")
+    credit(results, "fleet rerun", c3, "template_eval")
+    log(f"[fleet] receipts deleted: {third['ok']} jobs ran again, {third['added']} "
+        f"added, {third['stored']} new records: deterministic on the card; "
+        f"sweep {third['report_wall_s']:.1f} s, template_eval launches "
+        f"{c3['template_eval']}")
+
+    # 4. the search CLI's tensor engine on the card
+    own = ROOT / "build" / "search_cli_library"
+    shutil.rmtree(own, ignore_errors=True)
+    ets = (1, 2)
+    reset_counts()
+    rc, text, secs = run_cli(torch, "search", search_main, [
+        "--benchmark", "mul_i4", "--et", *ets, "--method", "tensor",
+        "--library", own])
+    counts = read_counts()
+    gens = search_defaults()["generations"]
+    lines = [line for line in text.splitlines() if " ET=" in line]
+    require(len(lines) == len(ets) and all("[tensor]" in line for line in lines)
+            and len(OperatorStore(own)) > 0
+            and counts["template_eval"] == len(ets) * (gens + 1),
+            f"python -m repro_torch.core.search --method tensor: {text[-800:]}, "
+            f"launches {counts}")
+    credit(results, "core.search", counts, "template_eval")
+    for line in lines:
+        log(f"[fleet] python -m repro_torch.core.search --method tensor: {line}")
+    log(f"[fleet] core.search: {len(OperatorStore(own))} records in {secs:.2f} s, "
+        f"template_eval launches {counts['template_eval']} = {len(ets)} x "
+        f"({gens} generations + 1)")
+    out.update({k: {x: v for x, v in d.items() if x != "text"}
+                for k, d in (("first", first), ("resumed", second), ("rerun", third))})
+    out["search_cli"] = {"seconds": secs, "lines": lines,
+                         "launches": counts["template_eval"]}
+    out["records"] = len(store)
+
+
+# ---------------------------------------------------------------------------
 # phase 3b: the QoS read path -- baselines, plans, a plan served and swapped
 # ---------------------------------------------------------------------------
 def phase_plans(torch, cfg, params, library: Path, results: dict) -> None:
@@ -901,19 +1088,14 @@ def phase_plans(torch, cfg, params, library: Path, results: dict) -> None:
     out: dict = {"baselines": []}
     results["plans"] = out
 
-    # 1. the baseline engines' jobs into the library
+    # 1. the baseline engines' jobs past the fleet's grid into the library
     store = OperatorStore(library)
     for name, bits, et in BASELINE_JOBS:
-        opts = ANNEAL_OPTS if name == "anneal" else {}
         job = SearchJob("mul", bits, et, name, budget_s=BASELINE_BUDGET_S)
         t0 = time.perf_counter()
-        res = get_engine(name, **opts).run(job)
+        res = get_engine(name).run(job)
         wall = time.perf_counter() - t0
         require(res.ok and wall < BASELINE_BUDGET_S, f"{job.describe()}: {res.error}")
-        if name == "anneal":
-            steps = ANNEAL_OPTS["steps"] * ANNEAL_OPTS["restarts"]
-            require(res.stats["steps"] == steps,
-                    f"{job.describe()}: ran {res.stats['steps']} of {steps} steps")
         for c in res.results:
             store.put_circuit(c.circuit, job.signature(), area=c.area,
                               source=name, proxies=c.proxies, params=c.params)
@@ -1091,11 +1273,14 @@ def phase_plans(torch, cfg, params, library: Path, results: dict) -> None:
 
     # 4. a mixed-width plan.  Sensitivities are the same for every layer;
     # per unit of table error they scale, from one width to the next, by
-    # the square of the ratio of the two widths' quantization steps
+    # the square of the ratio of the two widths' quantization steps.  The
+    # budget is scanned over a ladder of 4 L levels: the fleet's dense
+    # W8A8 frontier leaves the both-widths budgets between the 9 levels of
+    # the default scan, which then serves every layer at one width
     mixed = load_mixed_frontier(library)
     sens_mixed = {b: np.full(L, (get_width(4).qmax / get_width(b).qmax) ** 2)
                   for b in mixed.widths}
-    budget = choose_mixed_budget(mixed, sens_mixed, L)
+    budget = choose_mixed_budget(mixed, sens_mixed, L, levels=4 * L)
     width_map, plan_m = select_width_map(mixed, sens_mixed, budget, L)
     groups = {b: width_map.count(b) for b in sorted(set(width_map))}
     log(f"[plans] mixed width: budget {budget:.6g}, layers per width {groups}, "
@@ -1817,6 +2002,34 @@ def phase_continuous(torch, cfg, params, library: Path, results: dict) -> None:
 # ---------------------------------------------------------------------------
 # phase 7: the system's own entry points
 # ---------------------------------------------------------------------------
+def run_cli(torch, name: str, main, argv: list) -> tuple:
+    """One entry point's ``main(argv)`` in this process: its exit code,
+    standard output (also written to ``chiprun_out/cli_<name>.log``) and
+    seconds, the card synchronised.  The tracer and the metric registry
+    are reset after it, as a new process would start without them."""
+    import contextlib
+    import io
+
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import trace as obs_trace
+
+    log_dir = ROOT / "chiprun_out"
+    log_dir.mkdir(exist_ok=True)
+    buf = io.StringIO()
+    obs_metrics.set_registry(obs_metrics.MetricRegistry())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = main([str(a) for a in argv])
+        torch.cuda.synchronize()
+    finally:
+        obs_trace.reset(clear_env=True)
+        obs_metrics.set_registry(obs_metrics.MetricRegistry())
+        (log_dir / f"cli_{name}.log").write_text(buf.getvalue())
+    return rc, buf.getvalue(), time.perf_counter() - t0
+
+
 def phase_cli(torch, cfg, params, library: Path, results: dict) -> None:
     """The entry points a user calls, in this process, at full width: the
     profiler (``python -m repro_torch.sensitivity.profile``) at W4A4 over
@@ -1828,16 +2041,11 @@ def phase_cli(torch, cfg, params, library: Path, results: dict) -> None:
     standard output goes to ``chiprun_out/cli_<name>.log``; the tracer and
     the process's metric registry are reset after each, as a new process
     would start without them."""
-    import contextlib
-    import io
-
     import numpy as np
 
     from repro_torch.launch import serve as serve_cli
     from repro_torch.models import forward_fn
     from repro_torch.obs import __main__ as inspect_cli
-    from repro_torch.obs import metrics as obs_metrics
-    from repro_torch.obs import trace as obs_trace
     from repro_torch.precision.plans import load_frontier
     from repro_torch.precision.widths import exact_table
     from repro_torch.sensitivity import profile as profile_cli
@@ -1849,23 +2057,9 @@ def phase_cli(torch, cfg, params, library: Path, results: dict) -> None:
     tmp = ROOT / "build" / "cli"
     shutil.rmtree(tmp, ignore_errors=True)
     (tmp / "base").mkdir(parents=True)
-    log_dir = ROOT / "chiprun_out"
-    log_dir.mkdir(exist_ok=True)
 
     def call(name: str, main, argv: list[str]):
-        buf = io.StringIO()
-        obs_metrics.set_registry(obs_metrics.MetricRegistry())
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        try:
-            with contextlib.redirect_stdout(buf):
-                rc = main([str(a) for a in argv])
-            torch.cuda.synchronize()
-        finally:
-            obs_trace.reset(clear_env=True)
-            obs_metrics.set_registry(obs_metrics.MetricRegistry())
-            (log_dir / f"cli_{name}.log").write_text(buf.getvalue())
-        return rc, buf.getvalue(), time.perf_counter() - t0
+        return run_cli(torch, name, main, argv)
 
     # 1. the profiler at W4A4: 1 + L + L*O forwards, each through flash once
     # a layer and the W4A4 kernel three times a layer
@@ -2122,6 +2316,280 @@ def phase_cli(torch, cfg, params, library: Path, results: dict) -> None:
     log(f"[cli] python -m repro_torch.obs over the serve's trace: "
         + ", ".join(f"{n} {rc}" for n, rc in rcs.items())
         + f" (exit codes); {n_events} Chrome trace events")
+
+
+# ---------------------------------------------------------------------------
+# phase 8: gemma3-1b, the reference's default model, at full width
+# ---------------------------------------------------------------------------
+def phase_gemma3(torch, library: Path, results: dict) -> None:
+    """Full-width gemma3-1b (bf16, random weights from seed 0) served from
+    the library [fleet] filled: ``forward_lm`` at B=2 S=1024 through flash
+    on every layer (its 22 local layers at window 512) and W4A4 on the
+    cheapest sound operator, held against the plain route; one local
+    layer's attention through the kernel against the plain version; the
+    launcher's W8A8 serve; a continuous W4A4 serve (22 rings and 4 paged
+    layers) captured once, against the plain route; the profiler's
+    ``main`` with its default arch; and the two examples."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.examples import approx_inference, serve_batch
+    from repro_torch.fleet.plan import SWEEPS, plan_jobs
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.library.compile import load_mul_frontier
+    from repro_torch.models import forward_fn, init_model
+    from repro_torch.models import layers as Lyr
+    from repro_torch.models.lm import layer_window, window_schedule
+    from repro_torch.precision.plans import load_frontier
+    from repro_torch.sensitivity import profile as profile_cli
+    from repro_torch.serving import ContinuousServingEngine, Telemetry, steady
+    from repro_torch.serving.engine import _WARMUP
+
+    out: dict = {}
+    results["gemma3"] = out
+    dev = torch.device("cuda")
+    cfg = get_config("gemma3-1b")
+    L = cfg.n_layers
+    win = window_schedule(cfg)
+    local = sum(layer_window(win, i) is not None for i in range(L))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = init_model(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"[gemma3] {cfg.name}: {L} layers ({local} local at window "
+        f"{cfg.local_window}, {L - local} global), d_model {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} of dim {cfg.hd}, d_ff {cfg.d_ff}, vocab "
+        f"{cfg.vocab_size}, {cfg.n_params() / 1e9:.2f} B params in {cfg.dtype}, "
+        f"init {time.perf_counter() - t0:.1f} s")
+    tmp = ROOT / "build" / "gemma3"
+    shutil.rmtree(tmp, ignore_errors=True)
+    tmp.mkdir(parents=True)
+
+    # 1. forward_lm at B=2 S=1024, W4A4 on the cheapest sound operator the
+    # fleet's sweep found (the library also holds [control]'s constant-zero
+    # multiplier, whose MLP output drowns every other difference)
+    compiled, exact_area, bits = load_mul_frontier(library)
+    swept = {j.key() for j in plan_jobs(SWEEPS[FLEET_SWEEP])}
+    rec, comp = next((r, c) for r, c in compiled if r.meta.get("job") in swept)
+    stack = np.stack([comp.lut] * L)
+    cfg4 = cfg.with_approx_mlp(4)
+    fwd = forward_fn(cfg4)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    B, S = 2, 1024
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)}
+    real = ops.flash_attention
+    windows = []
+
+    def spy(q, k, v, *, window=None, **kw):
+        windows.append(window)
+        return real(q, k, v, window=window, **kw)
+
+    def forward(backend="auto"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits = fwd(cfg4, params, batch, lut=stack, backend=backend)[0]
+        torch.cuda.synchronize()
+        return logits, time.perf_counter() - t0
+
+    forward()   # warm: the first call builds the tables' device copies
+    reset_counts()
+    ops.flash_attention = spy
+    try:
+        logits, secs = forward()
+    finally:
+        ops.flash_attention = real
+    counts = read_counts()
+    n512 = windows.count(cfg.local_window)
+    require(counts["flash_attention"] == L and n512 == local
+            and windows.count(None) == L - local
+            and counts["approx_matmul_w4"] == 3 * L
+            and counts["approx_matmul_w8"] == counts["template_eval"] == 0,
+            f"gemma3 forward launches {counts}, windows {windows}")
+    credit(results, "gemma3 forward_lm", counts, "flash_attention", "approx_matmul_w4")
+    require(tuple(logits.shape) == (B, S, cfg.vocab_size)
+            and bool(torch.isfinite(logits).all()), f"gemma3 logits {logits.shape}")
+    plain, plain_s = forward("ref")
+    first_equal = bool(torch.equal(logits[:, 0], plain[:, 0]))
+    gap = (logits - plain).abs()
+    mean_gap, max_gap = float(gap.mean()), float(gap.max())
+    agree = float((logits.argmax(-1) == plain.argmax(-1)).float().mean())
+    del gap
+    require(first_equal, "gemma3 forward: position-0 logits differ from the plain route")
+    log(f"[gemma3] forward_lm B={B} S={S} W4A4 on {rec.key} ({rec.source}, area "
+        f"{rec.area} of {exact_area}, {bits}-bit block, 16x16 wce {comp.wce16}, "
+        f"mae {comp.mae16:.3f}): {secs:.3f} s "
+        f"(host clock, synchronised, warm); flash launches {counts['flash_attention']} "
+        f"({n512} at window {cfg.local_window}, {windows.count(None)} global), "
+        f"approx_matmul_w4 launches {counts['approx_matmul_w4']}; plain route "
+        f"{plain_s:.2f} s; position-0 logits bit-equal; mean |kernel - plain| "
+        f"{mean_gap:.4g} over all positions (max {max_gap:.4g}, argmax agreement "
+        f"{agree:.3f})")
+    out["forward"] = {"seconds": secs, "plain_s": plain_s, "record": rec.key,
+                      "launches": counts, "windows_512": n512,
+                      "mean_abs_gap": mean_gap, "max_abs_gap": max_gap,
+                      "argmax_agreement": agree, "position0_equal": first_equal}
+    del logits, plain
+    release(torch)
+
+    # 2. one local layer's attention through the kernel and the plain version
+    lp = params["layers"][0]
+    with torch.no_grad():
+        x = params["embed"][batch["tokens"]].to(cfg.torch_dtype)
+        h = Lyr.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+        q, k, v = Lyr._qkv(cfg, lp["attn"], h)
+        cos, sin = Lyr.rope_tables(torch.arange(S, device=dev), cfg.hd, cfg.rope_theta)
+        q, k = Lyr.apply_rope(q, cos, sin), Lyr.apply_rope(k, cos, sin)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        got = ops.flash_attention(qt, kt, vt, causal=True, window=cfg.local_window)
+        want = ref.flash_attention(qt, kt, vt, causal=True, window=cfg.local_window)
+        err = float((got.float() - want.float()).abs().max())
+        o_k = Lyr.attention_full(cfg, lp["attn"], h, cfg.local_window)
+        o_p = Lyr.attention_full(cfg, lp["attn"], h, cfg.local_window, backend="ref")
+        o_err = float((o_k.float() - o_p.float()).abs().max())
+    require(err < FLASH_TOL["bfloat16"], f"gemma3 layer 0 attention: kernel against "
+            f"the plain version max |err| {err}")
+    log(f"[gemma3] layer 0 (local) attention on the model's q, k, v "
+        f"{tuple(qt.shape)}: kernel against the plain version max |err| {err:.3g} "
+        f"(< {FLASH_TOL['bfloat16']}); after wo, attention_full against the masked "
+        f"path {o_err:.3g}")
+    out["layer0_attention"] = {"max_abs_err": err, "attention_full_max_abs_err": o_err}
+    del x, h, q, k, v, qt, kt, vt, got, want, o_k, o_p
+
+    # 3. the launcher at W8A8 on the fleet's library
+    w8_json = tmp / "w8.json"
+    reset_counts()
+    _, text, w8_secs = run_cli(torch, "gemma3_serve_w8", serve_cli.main, [
+        "--arch", "gemma3-1b", "--width", 8, "--library", library,
+        "--qos-budget", "1e9", "--batch", 4, "--prompt-len", 16, "--gen-len", 16,
+        "--bench-json", w8_json])
+    counts = read_counts()
+    w8 = json.loads(w8_json.read_text())
+    replays = w8["batches"] * (16 + 16)
+    require(w8["width_bits"] == 8 and w8["approx_layers"] >= 1
+            and w8["trace_count"] == 1 and "serving W8A8" in text,
+            "gemma3 serve w8: " + json.dumps({k: w8.get(k) for k in (
+                "width_bits", "approx_layers", "trace_count")}))
+    require(counts["approx_matmul_w8"] == 3 * L * (replays + _WARMUP)
+            and not any(counts[n] for n in counts if n != "approx_matmul_w8"),
+            f"gemma3 serve w8 launches {counts}, {w8['batches']} batch(es) of 32 replays")
+    credit(results, "gemma3 serve w8", counts, "approx_matmul_w8")
+    log(f"[gemma3] python -m repro_torch.launch.serve --arch gemma3-1b --width 8 "
+        f"(batch 4, prompt 16, gen 16): {w8['approx_layers']} approx layers, "
+        f"{w8['ms_per_step']:.2f} ms a step, decode {w8['decode_tok_s']:.2f} tok/s, "
+        f"prefill {w8['prefill_tok_s']:.2f} tok/s, {w8_secs:.2f} s; captured "
+        f"{w8['trace_count']}x, approx_matmul_w8 launches {counts['approx_matmul_w8']} "
+        f"= {3 * L} x ({replays} replays + {_WARMUP} warm-up)")
+    out["serve_w8"] = {"summary": w8, "seconds": w8_secs,
+                       "launches": counts["approx_matmul_w8"]}
+    release(torch)
+
+    # 4. a continuous W4A4 serve: rings for the local layers, page pools for
+    # the global ones; the kernel route against the plain route
+    slots, sp, sg = 8, 16, 16
+    prof = steady(2, 4, prompt_len=sp, gen_len=sg)
+    runs = {}
+    for backend in ("auto", "ref"):
+        e = ContinuousServingEngine(cfg4, params, max_slots=slots, prompt_len=sp,
+                                    gen_len=sg, page_size=16, luts=stack,
+                                    backend=backend, device=dev)
+        snap = {"logits": ()}
+
+        def keep(e, step, snap=snap):
+            # the first step that holds the most requests
+            rows = [i for i, _ in e._pool]
+            if len(rows) > len(snap["logits"]):
+                snap["logits"] = e.static_step.logits[rows].clone()
+                snap["step"] = step
+
+        reset_counts()
+        tel = e.serve(prof, telemetry=Telemetry(), seed=0, on_step_end=keep)
+        counts = read_counts()
+        st = e.static_step
+        rings = sum("k" in c for c in st.caches)
+        require(e.trace_count == 1 and rings == local
+                and sum("kp" in c for c in st.caches) == L - local,
+                f"gemma3 continuous {backend}: captured {e.trace_count}x, "
+                f"{rings} rings")
+        runs[backend] = ({rid: g.tolist() for rid, g in sorted(e.completions.items())},
+                         snap["logits"], tel.summary(), counts, st.replays,
+                         snap["step"])
+        del e
+        release(torch)
+    done, held, summ, counts, replays, step = runs["auto"]
+    require(len(done) == prof.total_requests and done == runs["ref"][0],
+            "gemma3 continuous: completions differ between kernel and plain route")
+    require(step == runs["ref"][5] and torch.equal(held, runs["ref"][1]),
+            f"gemma3 continuous: step {step}'s logits differ between kernel and "
+            f"plain route")
+    require(counts["approx_matmul_w4"] == 3 * L * (replays + _WARMUP)
+            and not any(counts[n] for n in counts if n != "approx_matmul_w4"),
+            f"gemma3 continuous launches {counts}, {replays} replays")
+    credit(results, "gemma3 continuous", counts, "approx_matmul_w4")
+    lat = summ["latency_ms_per_step"]
+    log(f"[gemma3] continuous W4A4 serve ({slots} slots, {local} rings + "
+        f"{L - local} paged layers, steady 2x4, prompt {sp}, gen {sg}): "
+        f"{len(done)} requests in {summ['steps']} steps, ms a step p50 {lat['p50']} "
+        f"p95 {lat['p95']}, decode {summ['decode_tok_s']} tok/s; captured once; "
+        f"approx_matmul_w4 launches {counts['approx_matmul_w4']} = {3 * L} x "
+        f"({replays} replays + {_WARMUP} warm-up); completions identical to the "
+        f"plain route's, step {step}'s logits of {len(held)} rows bit-equal")
+    out["continuous"] = {"summary": summ, "replays": replays,
+                         "launches": counts["approx_matmul_w4"]}
+
+    # 5. the profiler with its default arch (gemma3-1b)
+    O = len(load_frontier(library, 4)[0])
+    forwards = 1 + L + L * O
+    reset_counts()
+    _, text, p_secs = run_cli(torch, "gemma3_profile", profile_cli.main, [
+        "--widths", "4", "--library", library, "--batch", 4, "--seq", 32,
+        "--out", tmp / "p.json"])
+    counts = read_counts()
+    prof_g = profile_cli.load_profile(tmp / "p.json")
+    require(prof_g.model == cfg.name and prof_g.n_layers == L
+            and counts["flash_attention"] == forwards * L
+            and counts["approx_matmul_w4"] == 3 * forwards * L
+            and counts["approx_matmul_w8"] == 0
+            and np.isfinite(prof_g.sensitivities(4)).all(),
+            f"gemma3 profile: model {prof_g.model}, launches {counts}, expected "
+            f"{forwards} forwards")
+    credit(results, "gemma3 profile", counts, "flash_attention", "approx_matmul_w4")
+    log(f"[gemma3] python -m repro_torch.sensitivity.profile (no --arch: "
+        f"{prof_g.model}) --widths 4, B=4 S=32: a frontier of {O}, {forwards} "
+        f"forwards in {p_secs:.2f} s ({1e3 * p_secs / forwards:.1f} ms a forward, "
+        f"init included); flash launches {counts['flash_attention']} = {L} a "
+        f"forward, approx_matmul_w4 {counts['approx_matmul_w4']} = {3 * L} a forward")
+    out["profile"] = {"operators": O, "forwards": forwards, "seconds": p_secs,
+                      "launches": counts}
+
+    # 6. the examples, each as its user calls it
+    reset_counts()
+    rc, text, a_secs = run_cli(torch, "example_approx_inference",
+                               approx_inference.main, ["--library", library])
+    counts = read_counts()
+    require(rc is None and "-> per-layer operators selected" in text
+            and counts["approx_matmul_w4"] > 0 and counts["flash_attention"] > 0,
+            f"approx_inference: launches {counts}\n{text[-800:]}")
+    credit(results, "example approx_inference", counts, "approx_matmul_w4",
+           "flash_attention")
+    drift = next(line for line in text.splitlines() if line.startswith("measured drift"))
+    log(f"[gemma3] python -m repro_torch.examples.approx_inference --library "
+        f"(qwen3-4b reduced): exit 0 in {a_secs:.2f} s; {drift}; launches "
+        f"approx_matmul_w4 {counts['approx_matmul_w4']}, flash "
+        f"{counts['flash_attention']} (head dim 16 on the D = 64 kernel)")
+    sb_json = tmp / "serve_batch.json"
+    reset_counts()
+    rc, text, b_secs = run_cli(torch, "example_serve_batch", serve_batch.main,
+                               ["--arch", "gemma3-1b", "--bench-json", sb_json])
+    sb = json.loads(sb_json.read_text())
+    require(rc is None and sb["trace_count"] == 1 and "arch=gemma3-1b-reduced" in text,
+            f"serve_batch: {sb}")
+    log(f"[gemma3] python -m repro_torch.examples.serve_batch --arch gemma3-1b: "
+        f"exit 0 in {b_secs:.2f} s, {sb['requests']} requests, {sb['ms_per_step']} "
+        f"ms a step, captured {sb['trace_count']}x")
+    out["examples"] = {"approx_inference_s": a_secs, "serve_batch_s": b_secs,
+                       "serve_batch": sb}
 
 
 # ---------------------------------------------------------------------------
@@ -2387,12 +2855,14 @@ def main() -> int:
         f"{time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card")
     phases = [("search serve", lambda: phase_search_serve(torch, cfg, params, library, results)),
+              ("fleet", lambda: phase_fleet(torch, library, results)),
               ("plans", lambda: phase_plans(torch, cfg, params, library, results)),
               ("control", lambda: phase_control(torch, cfg, params, library, results)),
               ("continuous", lambda: phase_continuous(torch, cfg, params, library, results)),
               ("serve", lambda: phase_serve(torch, cfg, params, results)),
               ("forward", lambda: phase_forward(torch, cfg, params, results)),
-              ("cli", lambda: phase_cli(torch, cfg, params, library, results))]
+              ("cli", lambda: phase_cli(torch, cfg, params, library, results)),
+              ("gemma3", lambda: phase_gemma3(torch, library, results))]
     for name, run in phases:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()

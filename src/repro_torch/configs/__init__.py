@@ -12,12 +12,13 @@ from ..models.config import ModelConfig
 _ARCH_MODULES = {
     "qwen3-4b": "qwen3_4b",
     "stablelm-1.6b": "stablelm_1_6b",
+    "gemma3-1b": "gemma3_1b",
 }
 
 # architectures of the JAX package whose families are not ported yet
 _NOT_PORTED = (
     "mixtral-8x7b", "deepseek-v2-lite-16b", "command-r-plus-104b",
-    "gemma3-1b", "whisper-tiny", "rwkv6-3b", "internvl2-1b", "hymba-1.5b",
+    "whisper-tiny", "rwkv6-3b", "internvl2-1b", "hymba-1.5b",
 )
 
 ARCH_IDS = list(_ARCH_MODULES)

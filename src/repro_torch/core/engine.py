@@ -16,9 +16,9 @@ Own copy of ``repro.core.engine``:
   engines ``shared``/``xpat`` need z3 and raise
   :class:`NotImplementedError` (ROADMAP.md, "Not queued, on purpose"), so
   :func:`available_engines` gives what the reference gives without z3.
-
-The reference wraps every engine in ``InstrumentedEngine`` (metrics and
-trace spans); the port returns the engine itself.
+  Every engine comes back wrapped in :class:`InstrumentedEngine`, which
+  reports each run into :mod:`repro_torch.obs` (a ``search.run`` span and
+  the ``search_*`` metrics) and passes every other attribute through.
 """
 
 from __future__ import annotations
@@ -30,6 +30,8 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..obs.metrics import get_registry
+from ..obs.trace import span as trace_span
 from .arith import benchmark as _benchmark
 from .circuits import Circuit
 from .miter import ERROR_METRICS, ErrorStats, measure_error, values_from_tables
@@ -46,6 +48,7 @@ __all__ = [
     "TensorEngine",
     "AnnealEngine",
     "RewriteEngine",
+    "InstrumentedEngine",
     "get_engine",
     "available_engines",
     "ENGINE_NAMES",
@@ -342,18 +345,65 @@ ENGINE_NAMES = ("shared", "xpat", "tensor", "anneal", "muscat", "mecals")
 _NEEDS_Z3 = ("shared", "xpat")
 
 
-def get_engine(name: str, **opts):
-    """Engine instance by registry name; ``opts`` are engine-specific
-    constructor knobs (``population=``, ``device=``, ``backend=`` for
-    tensor, ``steps=`` for anneal; the rewrite engines take none)."""
+# the per-engine evaluation counters differ in name across engines; the
+# instrumented wrapper folds whichever is present into one
+# ``search_evaluations_total`` rate so dashboards compare engines directly
+_EVAL_STAT_KEYS = ("evaluations", "steps", "grid_points_tried")
+
+
+class InstrumentedEngine:
+    """Transparent observability wrapper every registry lookup returns.
+
+    ``run`` wraps the inner engine in a ``search.run`` span and folds the
+    outcome's stats into the process registry (evaluations across
+    engines, result counts, wall-time histogram, SMT solver seconds).
+    Everything else -- ``TensorEngine.search_kw`` among it -- passes
+    through untouched.
+    """
+
+    def __init__(self, inner) -> None:
+        self._inner = inner
+        self.name = inner.name
+
+    def __getattr__(self, attr):
+        return getattr(self._inner, attr)
+
+    def run(self, job: SearchJob) -> SearchOutcome:
+        reg = get_registry()
+        with trace_span("search.run", engine=self.name,
+                        benchmark=job.benchmark_name, et=job.et,
+                        metric=job.error_metric, seed=job.seed) as sp:
+            outcome = self._inner.run(job)
+            stats = outcome.stats or {}
+            evals = sum(int(stats.get(k, 0)) for k in _EVAL_STAT_KEYS)
+            reg.counter("search_runs_total", engine=self.name).inc()
+            reg.counter("search_evaluations_total",
+                        engine=self.name).inc(evals)
+            reg.counter("search_results_total",
+                        engine=self.name).inc(len(outcome.results))
+            reg.histogram("search_run_s",
+                          engine=self.name).observe(outcome.wall_s)
+            if stats.get("smt_solve_s"):
+                reg.counter("search_smt_solve_s_total",
+                            engine=self.name).inc(float(stats["smt_solve_s"]))
+            sp.set(n_results=len(outcome.results), evaluations=evals,
+                   wall_s=round(outcome.wall_s, 4), ok=outcome.ok)
+        return outcome
+
+
+def get_engine(name: str, **opts) -> InstrumentedEngine:
+    """Engine instance by registry name, wrapped in
+    :class:`InstrumentedEngine`; ``opts`` are engine-specific constructor
+    knobs (``population=``, ``device=``, ``backend=`` for tensor,
+    ``steps=`` for anneal; the rewrite engines take none)."""
     if name == "tensor":
-        return TensorEngine(**opts)
+        return InstrumentedEngine(TensorEngine(**opts))
     if name == "anneal":
-        return AnnealEngine(**opts)
+        return InstrumentedEngine(AnnealEngine(**opts))
     if name in ("muscat", "mecals"):
         if opts:
             raise TypeError(f"{name} engine takes no options, got {opts}")
-        return RewriteEngine(name)
+        return InstrumentedEngine(RewriteEngine(name))
     if name in _NEEDS_Z3:
         raise NotImplementedError(
             f"engine {name!r} is not ported to PyTorch: the SMT engines need "

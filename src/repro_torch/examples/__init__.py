@@ -1,0 +1,9 @@
+"""The reference's examples on the port, run as
+``python -m repro_torch.examples.<name>``:
+
+* :mod:`.approx_inference` — approximate-arithmetic inference screening,
+  ad hoc or from a persisted operator library under a QoS budget;
+* :mod:`.serve_batch` — the serve launcher on a reduced model.
+
+Each runs on the card unless given ``--device cpu``.
+"""

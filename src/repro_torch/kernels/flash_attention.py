@@ -53,7 +53,12 @@ def flash_attention(
     scale: float | None = None,
 ) -> torch.Tensor:
     """Attention on the card; semantics of
-    :func:`repro_torch.kernels.ref.flash_attention`."""
+    :func:`repro_torch.kernels.ref.flash_attention`.
+
+    A head dim below the kernels' smallest (64) that is a multiple of 8
+    -- the reduced models' 16 and 32 -- runs the D = 64 kernel on q, k
+    and v zero-padded to 64: the padding adds 0 to every q.k and to no
+    output column kept, and the scale stays that of the true head dim."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_cuda or t.ndim != 4 or not t.is_contiguous():
             raise ValueError(f"{name} must be a contiguous 4-D CUDA tensor")
@@ -65,6 +70,12 @@ def flash_attention(
         raise ValueError(f"dtype {q.dtype} not taken; float32 or bfloat16")
     B, H, Lq, D = q.shape
     _, Hkv, Lk, _ = k.shape
+    pad = min(head_dims()) - D
+    if pad > 0 and D % 8 == 0 and k.shape[3] == v.shape[3] == D:
+        scale = 1.0 / math.sqrt(D) if scale is None else float(scale)
+        q, k, v = (torch.nn.functional.pad(t, (0, pad)) for t in (q, k, v))
+        out = flash_attention(q, k, v, causal=causal, window=window, scale=scale)
+        return out[..., :D].contiguous()
     if D not in head_dims():
         raise ValueError(f"head dim {D} not taken; the kernels are built for "
                          f"{head_dims()}")

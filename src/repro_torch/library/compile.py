@@ -134,8 +134,8 @@ def load_mul_frontier(
     sigs = [s for s in store.signatures() if s.op_kind == "mul"]
     if not sigs:
         raise LookupError(
-            f"no multiplier operators in library {library}; fill it with "
-            f"tensor searches (repro_torch.core.engine.get_engine('tensor'))"
+            f"no multiplier operators in library {library}; fill it with: "
+            f"python -m repro_torch.fleet --library {library} --sweep smoke"
         )
     if target_bits is None:
         bits = max(s.bits for s in sigs)

@@ -343,6 +343,13 @@ class OperatorStore:
         recs.sort(key=lambda r: (r.area, r.wce))
         return recs
 
+    def __len__(self) -> int:
+        return sum(
+            1
+            for sig in self.signatures()
+            for _ in (self.root / sig.dirname).glob("*.json")
+        )
+
     def version_token(self) -> str:
         """Cheap fingerprint of the store's *readable* contents.
 

@@ -40,6 +40,18 @@ def window_schedule(cfg: ModelConfig) -> np.ndarray | int | None:
     return None
 
 
+def layer_window(win: np.ndarray | int | None, layer: int) -> int | None:
+    """Layer ``layer``'s window from a :func:`window_schedule`: ``None``
+    for a global layer, else an ``int``.  The reference's ``lax.scan``
+    traces a per-layer window, so its local layers take the masked path;
+    the port's loop knows each window on the host, so every layer of a
+    schedule reaches the flash kernel, which masks as the masked path does
+    (``k > q - window``)."""
+    if isinstance(win, np.ndarray):
+        return None if win[layer] < 0 else int(win[layer])
+    return win
+
+
 def init_lm(cfg: ModelConfig, seed: int = 0, *,
             device: str | torch.device = "cuda") -> Params:
     """Random weights from ``seed`` (a :class:`torch.Generator` on the
@@ -127,11 +139,8 @@ def forward_lm(
     per_layer_lut = lut_ is not None and lut_.ndim == 3
 
     for i, lp in enumerate(params["layers"]):
-        # a per-layer schedule rides as a tensor, as the reference's traced
-        # window does, so those layers take the masked path
-        w = torch.tensor(int(win[i])) if isinstance(win, np.ndarray) else win
         lut_i = lut_[i] if per_layer_lut else lut_
-        x = _block_full(cfg, lp, x, w, lut_i, backend)
+        x = _block_full(cfg, lp, x, layer_window(win, i), lut_i, backend)
     return _head(cfg, params, x), torch.zeros((), device=dev)
 
 
@@ -224,10 +233,7 @@ def _decode_layers(cfg: ModelConfig, luts, width_map, caller: str) -> list:
             f"per layer (got {width_map!r} for {cfg.n_layers} layers)")
     out = []
     for i in range(cfg.n_layers):
-        if isinstance(win, np.ndarray):
-            w = None if win[i] < 0 else int(win[i])
-        else:
-            w = win
+        w = layer_window(win, i)
         if isinstance(luts_, dict):
             lut_i = luts_[width_map[i]][width_map[:i].count(width_map[i])]
         elif luts_ is not None:

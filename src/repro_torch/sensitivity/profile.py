@@ -302,7 +302,7 @@ def main(argv=None) -> None:
 
     ap = argparse.ArgumentParser(
         description="measure a per-layer sensitivity profile")
-    ap.add_argument("--arch", default="qwen3-4b")
+    ap.add_argument("--arch", default="gemma3-1b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--widths", default="4,8",
                     help="comma-separated serving widths to profile")

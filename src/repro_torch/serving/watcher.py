@@ -4,7 +4,8 @@ Own copy of ``repro.serving.watcher``, whole; it loads frontiers through
 the port's :mod:`repro_torch.library.compile` and
 :mod:`repro_torch.precision.plans`.
 
-A background fleet sweep (``python -m repro.fleet``, same store format) densifies the operator store
+A background fleet sweep (``python -m repro_torch.fleet``, or the
+reference's, same store format) densifies the operator store
 *while* the server decodes.  Between batches the engine polls the
 watcher; when the store's :meth:`~repro_torch.library.store.OperatorStore.version_token`
 changes (records are content-addressed, so any put/merge/removal changes

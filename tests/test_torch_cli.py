@@ -257,10 +257,8 @@ def test_argument_checks_exit_with_the_same_message(case, library, sens_profile,
         pserve.main(argv + ["--device", "cpu"])
     want, got = want.value.code, got.value.code
     assert isinstance(want, str) and want
-    # the port's messages name its own modules; an empty store's remedy
-    # names the port's tensor search, the fleet being the reference's
-    if case == "empty-library":
-        want, got = want.split("; fill it with")[0], got.split("; fill it with")[0]
+    # the port's messages name its own modules (an empty store's remedy
+    # is the port's own fleet)
     assert got.replace("repro_torch.", "repro.") == want
 
 

@@ -26,7 +26,7 @@ def test_port_imports_no_jax_and_no_reference():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True,
                          env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""})
-    assert int(out.stdout.strip()) >= 67  # every module of slices 1 to 9
+    assert int(out.stdout.strip()) >= 77  # every module of slices 1 to 10
 
 
 def test_port_sources_name_no_jax_import():
@@ -127,3 +127,43 @@ def test_continuous_modules_load_and_serve_without_jax():
                          capture_output=True, text=True,
                          env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""})
     assert out.stdout.strip() == "5"   # ramp(2, 3): 2 + 3 arrivals
+
+
+def test_library_filling_entry_points_raise_without_a_card(monkeypatch, tmp_path):
+    """The fleet and the search CLI run their tensor jobs on the card
+    unless given ``--device cpu``."""
+    from repro_torch.core import search
+    from repro_torch.fleet import __main__ as fleet
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fleet.main(["--library", str(tmp_path), "--sweep", "smoke"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        search.main(["--benchmark", "mul_i4", "--et", "2", "--method", "tensor"])
+    assert not list(tmp_path.iterdir())
+
+
+def test_fleet_fills_a_library_without_jax(tmp_path):
+    """``python -m repro_torch.fleet`` in a process with neither jax nor
+    repro: the smoke sweep, its CPU jobs on a forked pool (CUDA is not
+    initialised) and its tensor jobs in the process, on the CPU; a second
+    run skips every job."""
+    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": ""}
+    argv = [sys.executable, "-c",
+            "import sys, runpy\n"
+            "sys.argv = ['fleet'] + sys.argv[1:]\n"
+            "try:\n"
+            "    runpy.run_module('repro_torch.fleet', run_name='__main__')\n"
+            "finally:\n"
+            "    bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+            "    assert not bad, bad\n",
+            "--library", str(tmp_path / "lib"), "--sweep", "smoke", "--device", "cpu",
+            "--workers", "2"]
+    out = subprocess.run(argv + ["--min-new", "1"], cwd=ROOT, env=env,
+                         capture_output=True, text=True)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "fleet: 5 CPU job(s) on a fork pool of 2 worker(s)" in out.stdout
+    assert "jobs: 9 ok, 0 resumed/skipped, 0 failed" in out.stdout
+    again = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True, text=True)
+    assert again.returncode == 0, again.stderr[-2000:]
+    assert "jobs: 0 ok, 9 resumed/skipped, 0 failed; 0 operator(s) added" in again.stdout

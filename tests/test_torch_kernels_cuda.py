@@ -58,6 +58,24 @@ def test_approx_matmul_kernel_on_card(cuda, M, K, N, side, rng):
     assert sum(after) == sum(before) + 1
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [4, 2048])
+@pytest.mark.parametrize("K,N", [(1152, 6912), (6912, 1152)])
+@pytest.mark.parametrize("side", [16, 256])
+def test_approx_matmul_kernel_at_gemma3_shapes(cuda, M, K, N, side, rng):
+    """gemma3-1b's MLP matmuls (d_model 1152, d_ff 6912) at a decode batch
+    of 4 and a B=2 S=1024 prefill, the plain version on the card too."""
+    if side == 16:
+        table = _codes(rng, (16, 16), 256)
+    else:
+        table = compose.tile_to_width(_codes(rng, (16, 16), 256)).astype(np.int32)
+    args = [_t(x).to(cuda) for x in (_codes(rng, (M, K), side),
+                                      _codes(rng, (K, N), side), table)]
+    got = ops.approx_matmul(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref.approx_matmul(*args))
+
+
 def _table(rng, side, kind="random"):
     """A W4A4 table, or a W8A8 table composed from a tile: of bytes, or
     wider ("375", "70000": one entry that large, two and three byte
@@ -206,6 +224,61 @@ def test_flash_kernel_on_card(cuda, B, H, Hkv, Lq, Lk, D, causal, window, dtype,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("window", [512, None], ids=["local", "global"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_at_gemma3_shapes(cuda, window, dtype, rng):
+    """gemma3-1b's prefill at B=2, S=1024: 4 heads on one KV head of dim
+    256, its local layers at window 512 and its global ones."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    q, k, v = _flash_qkv(rng, cuda, dt, 2, 4, 1, 1024, 1024, 256)
+    got = ops.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    want = ref.flash_attention(q, k, v, causal=True, window=window)
+    assert float((got.float() - want.float()).abs().max()) < FLASH_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,window", [(16, None), (32, None), (32, 16), (48, 7)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_kernel_pads_small_head_dims(cuda, D, window, dtype, rng):
+    """The reduced models' head dims (16, 32) run the D = 64 kernel on
+    zero-padded q, k and v, once a call, within the tolerance."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    q, k, v = _flash_qkv(rng, cuda, dt, 2, 4, 2, 40, 40, D)
+    before = fa.flash_attention.launches
+    got = ops.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert got.shape == q.shape and got.is_contiguous()
+    want = ref.flash_attention(q, k, v, causal=True, window=window)
+    assert float((got.float() - want.float()).abs().max()) < FLASH_TOL[dtype]
+
+
+@pytest.mark.cuda
+def test_gemma3_forward_launches_flash_on_every_layer(cuda):
+    """Reduced gemma3-1b on the card: its local layer (window 16) and its
+    global one each launch the flash kernel once a forward, and the
+    logits match the plain route's within the bf16 flash tolerance's
+    reach on a two-layer model."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import forward_fn, init_model
+
+    cfg = get_config("gemma3-1b", reduced=True)
+    params = init_model(cfg, seed=0, device=cuda)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), device=cuda,
+                           generator=torch.Generator(device=cuda).manual_seed(0))
+    before = fa.flash_attention.launches
+    got, _ = forward_fn(cfg)(cfg, params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + cfg.n_layers
+    want, _ = forward_fn(cfg)(cfg, params, {"tokens": tokens}, backend="ref")
+    assert torch.equal(got[:, 0], want[:, 0])
+    assert float((got - want).abs().max()) < 0.25
+
+
+@pytest.mark.cuda
 def test_flash_kernel_launches_once_a_call(cuda, rng):
     q, k, v = _flash_qkv(rng, cuda, torch.bfloat16, 1, 4, 2, 64, 64, 128)
     before = fa.flash_attention.launches
@@ -215,10 +288,10 @@ def test_flash_kernel_launches_once_a_call(cuda, rng):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("bad", ["head dim 96", "head dim 32", "mixed dtypes",
+@pytest.mark.parametrize("bad", ["head dim 96", "head dim 36", "mixed dtypes",
                                  "unaligned"])
 def test_flash_kernel_refuses_without_launching(cuda, bad, rng):
-    D = {"head dim 96": 96, "head dim 32": 32}.get(bad, 128)
+    D = {"head dim 96": 96, "head dim 36": 36}.get(bad, 128)
     q, k, v = _flash_qkv(rng, cuda, torch.bfloat16, 1, 4, 2, 64, 64, D)
     if bad == "mixed dtypes":
         k = k.float()
