@@ -1,7 +1,8 @@
-"""Architecture registry of the port: ``get_config(arch)`` resolves the
-architectures ported so far; the others raise until their family is
-ported.  Each module defines ``CONFIG`` (the published configuration)
-and ``REDUCED`` (a same-family miniature for CPU tests)."""
+"""Architecture registry of the port: ``get_config(arch)`` resolves every
+decoder-only architecture of the reference; the encoder–decoder one
+raises until its family is ported.  Each module defines ``CONFIG`` (the
+published configuration) and ``REDUCED`` (a same-family miniature for
+CPU tests)."""
 
 from __future__ import annotations
 
@@ -13,13 +14,16 @@ _ARCH_MODULES = {
     "qwen3-4b": "qwen3_4b",
     "stablelm-1.6b": "stablelm_1_6b",
     "gemma3-1b": "gemma3_1b",
+    "command-r-plus-104b": "command_r_plus_104b",
+    "internvl2-1b": "internvl2_1b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "hymba-1.5b": "hymba_1_5b",
+    "rwkv6-3b": "rwkv6_3b",
 }
 
 # architectures of the JAX package whose families are not ported yet
-_NOT_PORTED = (
-    "mixtral-8x7b", "deepseek-v2-lite-16b", "command-r-plus-104b",
-    "whisper-tiny", "rwkv6-3b", "internvl2-1b", "hymba-1.5b",
-)
+_NOT_PORTED = ("whisper-tiny",)
 
 ARCH_IDS = list(_ARCH_MODULES)
 

@@ -37,13 +37,17 @@ def _tensor(a, device: torch.device) -> torch.Tensor:
 def _tree(x, device: torch.device):
     if isinstance(x, dict):
         return {k: _tree(v, device) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):   # MoE's "shared": a list of FFN dicts
+        return [_tree(v, device) for v in x]
     return _tensor(x, device)
 
 
 def params_from_jax(tree: dict[str, Any], *,
                     device: str | torch.device = "cuda") -> dict[str, Any]:
     """A numpy copy of a reference LM parameter tree -> port parameters on
-    ``device``."""
+    ``device``.  Top-level entries (``embed``, ``lm_head``, ``vis_proj``,
+    ...) pass through; the stacked ``layers`` split into one dict a layer,
+    lists (MoE's shared experts) kept as lists."""
     dev = resolve_device(device)
     out = {k: _tree(v, dev) for k, v in tree.items() if k != "layers"}
     stacked = tree["layers"]
@@ -55,6 +59,8 @@ def params_from_jax(tree: dict[str, Any], *,
 def _index(x, i: int):
     if isinstance(x, dict):
         return {k: _index(v, i) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_index(v, i) for v in x]
     return np.asarray(x)[i]
 
 

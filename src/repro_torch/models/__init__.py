@@ -1,5 +1,7 @@
 """Model API of the port: init / forward / decode (dense and paged) for
-the dense family."""
+every decoder-only family.  The encoder–decoder family (``audio``,
+whisper-tiny) is not ported: :mod:`.lm` refuses it, and the paged entry
+points refuse it as the reference's do."""
 
 from __future__ import annotations
 
@@ -25,13 +27,18 @@ def decode_fn(cfg: ModelConfig):
 
 def init_paged_caches(cfg: ModelConfig, batch: int, n_pages: int,
                       page_size: int, max_len: int, *, device="cuda"):
-    """Page-pool decode caches for continuous batching (dense family)."""
+    """Page-pool decode caches for continuous batching (LM families; the
+    recurrent ones are refused by :func:`lm.init_paged_caches`)."""
+    if cfg.family == "audio":
+        raise ValueError("continuous batching serves LM families only")
     return lm.init_paged_caches(cfg, batch, n_pages, page_size, max_len,
                                 device=device)
 
 
 def decode_paged_fn(cfg: ModelConfig):
-    """Per-slot-position decode step over paged caches (dense family)."""
+    """Per-slot-position decode step over paged caches (LM families)."""
+    if cfg.family == "audio":
+        raise ValueError("continuous batching serves LM families only")
     return lm.decode_step_paged
 
 

@@ -1,7 +1,12 @@
-"""Layer primitives of the dense family, as pure functions over plain
-dicts of tensors (``init_*`` builds parameters, the apply functions take
-``(cfg, params, activations, ...)``), with the JAX package's layouts:
-activations ``(B, S, D)``, heads ``(B, S, H, hd)``.
+"""Layer primitives of every decoder-only family, as pure functions over
+plain dicts of tensors (``init_*`` builds parameters, the apply functions
+take ``(cfg, params, activations, ...)``), with the JAX package's layouts:
+activations ``(B, S, D)``, heads ``(B, S, H, hd)``.  Beside GQA attention
+and the SwiGLU FFN: MLA attention with its absorbed decode over a
+compressed cache, the MoE FFN (blocked dispatch), the selective-scan SSM
+mixer and RWKV6's time and channel mix.  Decode caches and recurrent
+states are written in place, so a decode step can be captured once as a
+CUDA graph.
 
 Attention dispatch: ``attention_full`` sends CUDA tensors to the flash
 kernel when the window is ``None`` or a Python int, as the reference
@@ -363,10 +368,147 @@ def attention_decode_paged(
 
 
 # ---------------------------------------------------------------------------
+# MLA attention (DeepSeek): compressed KV cache + absorbed decode
+# ---------------------------------------------------------------------------
+def init_mla(cfg: ModelConfig, gen: torch.Generator) -> Params:
+    mla = cfg.mla
+    D, H = cfg.d_model, cfg.n_heads
+    qk = mla.qk_nope_head_dim + mla.qk_rope_head_dim
+    dt = cfg.torch_dtype
+    return {
+        "wq": _dense_init(gen, (D, H * qk), dt),
+        "wdkv": _dense_init(gen, (D, mla.kv_lora_rank + mla.qk_rope_head_dim), dt),
+        "wuk": _dense_init(gen, (mla.kv_lora_rank, H * mla.qk_nope_head_dim), dt),
+        "wuv": _dense_init(gen, (mla.kv_lora_rank, H * mla.v_head_dim), dt),
+        "wo": _dense_init(gen, (H * mla.v_head_dim, D), dt),
+    }
+
+
+def mla_attention_full(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Teacher-forced MLA: keys and values expanded from the compressed
+    ``c_kv``, one rope head shared by every head.  The q/k head dim
+    (nope + rope) differs from v's, so this runs the masked path, as the
+    reference does."""
+    mla = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    nope, rope_d, vd, R = (mla.qk_nope_head_dim, mla.qk_rope_head_dim,
+                           mla.v_head_dim, mla.kv_lora_rank)
+    q = linear(x, p["wq"]).reshape(B, S, H, nope + rope_d)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    ckv_kr = linear(x, p["wdkv"])
+    c_kv, k_rope = ckv_kr[..., :R], ckv_kr[..., R:]          # (B,S,R), (B,S,rope_d)
+    k_nope = linear(c_kv, p["wuk"]).reshape(B, S, H, nope)
+    v = linear(c_kv, p["wuv"]).reshape(B, S, H, vd)
+
+    pos = torch.arange(S, device=x.device)
+    cos, sin = rope_tables(pos, rope_d, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, cos, sin)
+    k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)      # one shared head
+    k_rope = k_rope.expand(B, S, H, rope_d)
+
+    qfull = torch.cat([q_nope, q_rope], dim=-1)
+    kfull = torch.cat([k_nope, k_rope], dim=-1)
+    out = _masked_softmax_attn(qfull, kfull, v, pos, pos, None,
+                               f32_math=cfg.attn_f32)
+    return linear(out.reshape(B, S, -1), p["wo"])
+
+
+def _mla_absorbed(cfg: ModelConfig, p: Params, q_nope, q_rope, ckv, kr,
+                  mask, out_dtype) -> torch.Tensor:
+    """Attention over the compressed cache in float32: ``wuk`` folds into
+    the query, ``wuv`` into the output.  q_nope (B, H, nope), q_rope
+    (B, H, rope_d), ckv (B, C, R), kr (B, C, rope_d), mask (B or 1, C)."""
+    mla = cfg.mla
+    B, H = q_nope.shape[:2]
+    nope, rope_d, vd, R = (mla.qk_nope_head_dim, mla.qk_rope_head_dim,
+                           mla.v_head_dim, mla.kv_lora_rank)
+    wuk = p["wuk"].reshape(R, H, nope).float()
+    q_abs = torch.einsum("bhn,rhn->bhr", q_nope.float(), wuk)   # (B, H, R)
+    scale = 1.0 / math.sqrt(nope + rope_d)
+    ckv = ckv.float()
+    logits = (torch.einsum("bhr,bcr->bhc", q_abs, ckv)
+              + torch.einsum("bhd,bcd->bhc", q_rope.float(), kr.float())) * scale
+    logits = torch.where(mask[:, None, :], logits, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    ctx = torch.einsum("bhc,bcr->bhr", probs, ckv)              # (B, H, R)
+    wuv = p["wuv"].reshape(R, H, vd).float()
+    out = torch.einsum("bhr,rhv->bhv", ctx, wuv)
+    out = out.reshape(B, 1, H * vd).to(out_dtype)
+    return linear(out, p["wo"])
+
+
+def _mla_new(cfg: ModelConfig, p: Params, x: torch.Tensor, cos, sin):
+    """The decode token's query halves and its compressed cache row, the
+    rope half rotated: q_nope (B, H, nope), q_rope (B, H, rope_d), c_new
+    (B, R), kr_new (B, rope_d).  ``cos``/``sin`` broadcast as (B or 1,
+    1, rope_d // 2)."""
+    mla = cfg.mla
+    B = x.shape[0]
+    H = cfg.n_heads
+    nope, rope_d, R = mla.qk_nope_head_dim, mla.qk_rope_head_dim, mla.kv_lora_rank
+    q = linear(x, p["wq"]).reshape(B, 1, H, nope + rope_d)
+    q_rope = apply_rope(q[..., nope:], cos, sin)
+    ckv_kr = linear(x, p["wdkv"])
+    c_new, kr_new = ckv_kr[..., :R], ckv_kr[..., R:]
+    kr_new = apply_rope(kr_new[:, :, None, :], cos, sin)[:, :, 0]
+    return q[:, 0, :, :nope], q_rope[:, 0], c_new[:, 0], kr_new[:, 0]
+
+
+def mla_attention_decode(
+    cfg: ModelConfig,
+    p: Params,
+    x: torch.Tensor,                 # (B, 1, D)
+    cache: dict[str, torch.Tensor],  # {"ckv": (B, C, R), "kr": (B, C, rope_d)}
+    pos,                             # int | (1,) long tensor
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """Absorbed-matrix MLA decode: attention runs directly over the
+    compressed cache (DeepSeek-V2's serving form; the cache stays
+    R + rope_d wide), written in place at the position."""
+    pos_t = decode_position(pos, x.device)
+    cos, sin = rope_tables(pos_t, cfg.mla.qk_rope_head_dim, cfg.rope_theta)
+    q_nope, q_rope, c_new, kr_new = _mla_new(cfg, p, x, cos[None], sin[None])
+    cache["ckv"].index_copy_(1, pos_t, c_new[:, None])
+    cache["kr"].index_copy_(1, pos_t, kr_new[:, None])
+    C = cache["ckv"].shape[1]
+    valid = (torch.arange(C, device=x.device) <= pos_t)[None]
+    out = _mla_absorbed(cfg, p, q_nope, q_rope, cache["ckv"], cache["kr"],
+                        valid, x.dtype)
+    return out, cache
+
+
+def mla_attention_decode_paged(
+    cfg: ModelConfig,
+    p: Params,
+    x: torch.Tensor,                 # (B, 1, D)
+    cache: dict[str, torch.Tensor],  # {"ckvp": (P+1, S, R), "krp": (P+1, S, rd)}
+    pos: torch.Tensor,               # (B,) long
+    tables: torch.Tensor,            # (B, T) long
+    active: torch.Tensor,            # (B,) bool
+) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
+    """:func:`mla_attention_decode` over a paged compressed cache: the
+    ``(B, C, R)`` cache replaced by a shared page pool, per-slot
+    positions, inactive rows attending to slot 0 only."""
+    cos, sin = rope_tables(pos, cfg.mla.qk_rope_head_dim, cfg.rope_theta)
+    q_nope, q_rope, c_new, kr_new = _mla_new(cfg, p, x, cos[:, None],
+                                             sin[:, None])
+    _paged_write(cache["ckvp"], c_new, pos, tables)
+    _paged_write(cache["krp"], kr_new, pos, tables)
+    ckv = _paged_read(cache["ckvp"], tables)           # (B, K, R)
+    kr = _paged_read(cache["krp"], tables)             # (B, K, rope_d)
+    idx = torch.arange(ckv.shape[1], device=x.device)[None, :]
+    mask = idx <= pos[:, None]
+    mask = torch.where(active[:, None], mask, idx == 0)
+    out = _mla_absorbed(cfg, p, q_nope, q_rope, ckv, kr, mask, x.dtype)
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
 # dense FFN (SwiGLU)
 # ---------------------------------------------------------------------------
-def init_ffn(cfg: ModelConfig, gen: torch.Generator) -> Params:
-    D, Fd = cfg.d_model, cfg.d_ff
+def init_ffn(cfg: ModelConfig, gen: torch.Generator, *,
+             d_ff: int | None = None) -> Params:
+    D, Fd = cfg.d_model, d_ff or cfg.d_ff
     dt = cfg.torch_dtype
     return {
         "w1": _dense_init(gen, (D, Fd), dt),
@@ -380,7 +522,13 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     op rounding to ``x.dtype``: the reference's arithmetic.  In bf16 the
     fused ``F.silu`` (one rounding) differs from it in about a third of
     the elements, which flips W4A4 codes of the next matmul."""
-    return x * (1.0 / (1.0 + torch.exp(-x)))
+    return x * sigmoid(x)
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``1 / (1 + exp(-x))``, each op rounding to ``x.dtype``, as the
+    reference's ``jax.nn.sigmoid`` computes it."""
+    return 1.0 / (1.0 + torch.exp(-x))
 
 
 def ffn(cfg: ModelConfig, p: Params, x: torch.Tensor, lut=None, *,
@@ -388,3 +536,259 @@ def ffn(cfg: ModelConfig, p: Params, x: torch.Tensor, lut=None, *,
     h = (silu(linear(x, p["w1"], lut, backend=backend))
          * linear(x, p["w3"], lut, backend=backend))
     return linear(h, p["w2"], lut, backend=backend)
+
+
+# ---------------------------------------------------------------------------
+# MoE FFN: sort-based blocked dispatch
+# ---------------------------------------------------------------------------
+def init_moe(cfg: ModelConfig, gen: torch.Generator) -> Params:
+    mo = cfg.moe
+    D, Fe, E = cfg.d_model, mo.d_ff_expert, mo.n_experts
+    dt = cfg.torch_dtype
+    p = {
+        "router": _dense_init(gen, (D, E), torch.float32),
+        "w1": _dense_init(gen, (E, D, Fe), dt, fan_in=D),
+        "w3": _dense_init(gen, (E, D, Fe), dt, fan_in=D),
+        "w2": _dense_init(gen, (E, Fe, D), dt, fan_in=Fe),
+    }
+    if mo.n_shared:
+        p["shared"] = [init_ffn(cfg, gen, d_ff=Fe) for _ in range(mo.n_shared)]
+    return p
+
+
+def _top_k(probs: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``jax.lax.top_k``: the k largest along the last axis, the lower
+    index first on ties (a stable descending sort; ``torch.topk`` makes
+    no promise about ties)."""
+    vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor, lut=None,
+            dropless: bool = False, *,
+            backend: ops.Backend = "auto") -> tuple[torch.Tensor, torch.Tensor]:
+    """Returns (out, aux_loss), the Switch load-balancing loss.
+
+    Blocked dispatch, as the reference's default: tokens sorted by expert
+    (stably, so an expert keeps its earliest tokens) fill a block of
+    ``C`` slots per expert, ``ceil(T·K/E · capacity_factor)``, or
+    ``T·K`` when ``dropless`` (decode); tokens past a block are dropped.
+    The experts run as batched products ``(E, C, D) x (E, D, F)``; only
+    the shared experts route through ``lut``, as in the reference.  The
+    ``ragged`` form computes the same sums dropless, so it runs as the
+    dropless block here.
+
+    Every shape is fixed by (T, K, E, C), nothing is read back to the
+    host, and each token's K expert outputs are gathered back through the
+    inverse permutation and summed in ascending expert order, the order
+    the reference's scatter-add takes on the CPU: a decode step captures
+    once and replays bit for bit.  The router runs in float32.
+    """
+    mo = cfg.moe
+    B, S, D = x.shape
+    T, K, E = B * S, mo.top_k, mo.n_experts
+    flat = x.reshape(T, D)
+    dev = x.device
+
+    logits = linear(flat.float(), p["router"])               # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    gates, idx = _top_k(probs, K)                             # (T, K)
+    gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
+
+    # load-balancing aux loss (Switch-style)
+    me = probs.mean(dim=0)
+    flat_e = idx.reshape(-1)                                  # (T*K,)
+    ones = torch.ones((T * K,), dtype=torch.float32, device=dev)
+    ce = torch.zeros((E,), dtype=torch.float32, device=dev).index_add_(
+        0, flat_e, ones) / (T * K)
+    aux = mo.aux_loss_weight * E * torch.sum(me * ce)
+
+    order = torch.sort(flat_e, stable=True)[1]                # (T*K,)
+    group_sizes = torch.zeros((E,), dtype=torch.long, device=dev).index_add_(
+        0, flat_e, torch.ones_like(flat_e))
+    if dropless or mo.impl == "ragged":
+        C = T * K
+    else:
+        C = max(1, math.ceil(T * K / E * mo.capacity_factor))
+    starts = torch.cumsum(group_sizes, 0) - group_sizes      # (E,)
+    slot_c = torch.arange(C, device=dev)[None, :]
+    src = starts[:, None] + slot_c                            # (E, C) into order
+    valid = slot_c < group_sizes[:, None]
+    src = src.clamp(max=T * K - 1)
+    rows = (order // K)[src]                                  # (E, C) token ids
+    xs = flat[rows] * valid[..., None].to(flat.dtype)         # (E, C, D)
+    h1 = torch.bmm(xs, p["w1"])
+    h3 = torch.bmm(xs, p["w3"])
+    ys = torch.bmm(silu(h1) * h3, p["w2"])                    # (E, C, D)
+
+    # each (token, k) pick's place in its expert's block
+    inv = torch.empty_like(order).scatter_(
+        0, order, torch.arange(T * K, device=dev))
+    slot = inv - starts[flat_e]                               # (T*K,)
+    kept = slot < C
+    picked = ys[flat_e, slot.clamp(max=C - 1)].float()        # (T*K, D)
+    contrib = torch.where(kept[:, None], picked * gates.reshape(-1, 1), 0.0)
+    contrib = contrib.reshape(T, K, D).gather(
+        1, idx.argsort(dim=-1)[..., None].expand(T, K, D))    # ascending expert
+    out = contrib[:, 0]
+    for k in range(1, K):
+        out = out + contrib[:, k]
+
+    out = out.reshape(B, S, D).to(x.dtype)
+    for sp in p.get("shared", []):
+        out = out + ffn(cfg, sp, x, lut, backend=backend)
+    return out, aux
+
+
+# ---------------------------------------------------------------------------
+# RWKV6 time mix / channel mix (Finch: data-dependent decay)
+# ---------------------------------------------------------------------------
+def init_rwkv(cfg: ModelConfig, gen: torch.Generator) -> Params:
+    rw = cfg.rwkv
+    D = cfg.d_model
+    hd = rw.head_dim
+    H = D // hd
+    dt = cfg.torch_dtype
+    dev = gen.device
+
+    def full(v, dtype=dt, shape=(D,)):
+        return torch.full(shape, v, dtype=dtype, device=dev)
+
+    p = {f"mix_{n}": full(0.5) for n in "rkvgw"}
+    p.update({w: _dense_init(gen, (D, D), dt) for w in ("wr", "wk", "wv", "wg", "wo")})
+    p.update({
+        "w0": full(-6.0, torch.float32),
+        "w_a": _dense_init(gen, (D, rw.decay_lora), dt),
+        "w_b": _dense_init(gen, (rw.decay_lora, D), dt),
+        "u": full(0.0, torch.float32, (H, hd)),
+        "ln_x": full(0.0),
+        # channel mix
+        "cmix_k": full(0.5), "cmix_r": full(0.5),
+        "ck": _dense_init(gen, (D, cfg.d_ff), dt),
+        "cv": _dense_init(gen, (cfg.d_ff, D), dt),
+        "cr": _dense_init(gen, (D, D), dt),
+    })
+    return p
+
+
+def _rwkv_wkv_scan(r, k, v, w, u, state0):
+    """r/k/v (B,S,H,hd) f32; w (B,S,H,hd) decay in (0,1); u (H,hd).
+
+    state (B,H,hd,hd):  y_t = r_t · (state + u⊙k_t ⊗ v_t);
+                        state' = w_t⊙state + k_t ⊗ v_t  (⊙ along the k-index)
+
+    A loop over time in float32, as the reference's ``lax.scan``.
+    """
+    state = state0
+    ys = []
+    for t in range(r.shape[1]):
+        rt, kt, vt, wt = r[:, t], k[:, t], v[:, t], w[:, t]   # (B,H,hd)
+        kv = kt[..., :, None] * vt[..., None, :]              # (B,H,hd,hd)
+        y = torch.matmul(rt[..., None, :], state + u[None, :, :, None] * kv)
+        ys.append(y[..., 0, :])
+        state = wt[..., None] * state + kv
+    return torch.stack(ys, dim=1), state                      # (B,S,H,hd)
+
+
+def _token_shift(x: torch.Tensor, x_last: torch.Tensor | None) -> torch.Tensor:
+    """Each position's previous input: ``x_last`` (zeros if ``None``)
+    for the first, then ``x`` shifted by one."""
+    if x_last is None:
+        x_last = torch.zeros_like(x[:, :1])
+    return torch.cat([x_last, x[:, :-1]], dim=1)
+
+
+def rwkv_time_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                  state: tuple | None = None):
+    """Returns (out, (x_last, wkv_state)).  ``state=None`` => zeros;
+    decode passes the carried ``(x_tm, wkv)`` and S == 1."""
+    rw = cfg.rwkv
+    B, S, D = x.shape
+    hd = rw.head_dim
+    H = D // hd
+    if state is None:
+        x_prev_last = None
+        wkv0 = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device)
+    else:
+        x_prev_last, wkv0 = state
+    xprev = _token_shift(x, x_prev_last)
+
+    def mixed(mu):
+        return x + (xprev - x) * mu
+
+    def heads(w):
+        return linear(mixed(p[f"mix_{w}"]), p[f"w{w}"]).reshape(B, S, H, hd).float()
+
+    r, k, v = heads("r"), heads("k"), heads("v")
+    g = silu(linear(mixed(p["mix_g"]), p["wg"]))
+    xw = mixed(p["mix_w"])
+    dd = linear(torch.tanh(linear(xw, p["w_a"])), p["w_b"]).float()
+    w = torch.exp(-torch.exp(p["w0"][None, None] + dd))      # (B,S,D) in (0,1)
+    w = w.reshape(B, S, H, hd)
+
+    y, wkv = _rwkv_wkv_scan(r, k, v, w, p["u"], wkv0)
+    y = rmsnorm(y.reshape(B, S, D).to(x.dtype), p["ln_x"], cfg.norm_eps)
+    out = linear(y * g, p["wo"])
+    return out, (x[:, -1:], wkv)
+
+
+def rwkv_channel_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                     x_last: torch.Tensor | None = None):
+    xprev = _token_shift(x, x_last)
+    xk = x + (xprev - x) * p["cmix_k"]
+    xr = x + (xprev - x) * p["cmix_r"]
+    k = torch.relu(linear(xk, p["ck"]))
+    out = sigmoid(linear(xr, p["cr"])) * linear(k * k, p["cv"])
+    return out, x[:, -1:]
+
+
+# ---------------------------------------------------------------------------
+# SSM mixer (Mamba-style selective scan; hymba's parallel heads)
+# ---------------------------------------------------------------------------
+def init_ssm(cfg: ModelConfig, gen: torch.Generator) -> Params:
+    sm = cfg.ssm
+    D = cfg.d_model
+    Di = sm.d_inner or D
+    N = sm.state_dim
+    dt = cfg.torch_dtype
+    dev = gen.device
+    return {
+        "win": _dense_init(gen, (D, 2 * Di), dt),
+        "wB": _dense_init(gen, (Di, N), dt),
+        "wC": _dense_init(gen, (Di, N), dt),
+        "wdt1": _dense_init(gen, (Di, sm.dt_rank), dt),
+        "wdt2": _dense_init(gen, (sm.dt_rank, Di), dt),
+        "A_log": torch.zeros((Di, N), dtype=torch.float32, device=dev),
+        "Dskip": torch.ones((Di,), dtype=torch.float32, device=dev),
+        "wout": _dense_init(gen, (Di, D), dt),
+    }
+
+
+def ssm_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
+            state: torch.Tensor | None = None):
+    """Selective scan, a loop over time in float32, as the reference's
+    ``lax.scan``.  Returns (out, state); state (B, Di, N)."""
+    sm = cfg.ssm
+    B, S, D = x.shape
+    Di = sm.d_inner or D
+    N = sm.state_dim
+    xz = linear(x, p["win"])
+    xi, z = xz[..., :Di], xz[..., Di:]
+    xi_f = xi.float()
+    dt_ = linear(linear(xi, p["wdt1"]), p["wdt2"]).float()
+    dt = torch.logaddexp(dt_, torch.zeros_like(dt_))           # softplus (B,S,Di)
+    Bt = linear(xi, p["wB"]).float()                           # (B,S,N)
+    Ct = linear(xi, p["wC"]).float()                           # (B,S,N)
+    A = -torch.exp(p["A_log"])                                 # (Di,N)
+    decay = torch.exp(dt[..., None] * A[None, None])           # (B,S,Di,N)
+    contrib = (dt * xi_f)[..., None] * Bt[:, :, None, :]       # (B,S,Di,N)
+
+    s = (torch.zeros((B, Di, N), dtype=torch.float32, device=x.device)
+         if state is None else state)
+    ys = []
+    for t in range(S):
+        s = decay[:, t] * s + contrib[:, t]
+        ys.append(torch.matmul(s, Ct[:, t, :, None])[..., 0])   # (B,Di)
+    y = torch.stack(ys, dim=1) + p["Dskip"][None, None] * xi_f  # (B,S,Di)
+    out = linear(y.to(x.dtype) * silu(z), p["wout"])
+    return out, s

@@ -1,5 +1,6 @@
-"""Decoder-only language model of the dense family: init, teacher-forced
-forward and one-token decode.
+"""Decoder-only language model of every family but the encoder–decoder
+one (dense, MoE, MLA, VLM, hybrid attention + SSM, RWKV6): init,
+teacher-forced forward and one-token decode, fixed-batch and paged.
 
 Parameters are plain dicts of tensors with one dict per layer in
 ``params["layers"]`` (the reference stacks them on a leading axis for its
@@ -16,6 +17,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels import ops
+from ..precision.widths import width_from_lut
 from . import layers as L
 from .config import ModelConfig
 
@@ -23,7 +25,7 @@ Params = dict[str, Any]
 
 
 def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+    if cfg.family == "audio":
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet")
 
@@ -61,28 +63,64 @@ def init_lm(cfg: ModelConfig, seed: int = 0, *,
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     dt = cfg.torch_dtype
 
-    def zeros():
-        return torch.zeros((cfg.d_model,), dtype=dt, device=dev)
-
-    layers = [{"ln1": zeros(), "ln2": zeros(),
-               "attn": L.init_attention(cfg, gen),
-               "ffn": L.init_ffn(cfg, gen)} for _ in range(cfg.n_layers)]
+    layers = [_init_layer(cfg, gen) for _ in range(cfg.n_layers)]
     params: Params = {
         "embed": L._dense_init(gen, (cfg.vocab_size, cfg.d_model), dt,
                                fan_in=cfg.d_model),
         "layers": layers,
-        "ln_f": zeros(),
+        "ln_f": torch.zeros((cfg.d_model,), dtype=dt, device=dev),
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = L._dense_init(gen, (cfg.d_model, cfg.vocab_size), dt)
+    if cfg.vision is not None:
+        params["vis_proj"] = L._dense_init(gen, (cfg.vision.d_vision, cfg.d_model), dt)
     return params
 
 
+def _init_layer(cfg: ModelConfig, gen: torch.Generator) -> Params:
+    dt = cfg.torch_dtype
+    p: Params = {"ln1": torch.zeros((cfg.d_model,), dtype=dt, device=gen.device),
+                 "ln2": torch.zeros((cfg.d_model,), dtype=dt, device=gen.device)}
+    if cfg.rwkv is not None:
+        p["rwkv"] = L.init_rwkv(cfg, gen)
+        return p
+    p["attn"] = L.init_mla(cfg, gen) if cfg.mla is not None else L.init_attention(cfg, gen)
+    if cfg.ssm is not None:
+        p["ssm"] = L.init_ssm(cfg, gen)
+    if cfg.moe is not None:
+        p["moe"] = L.init_moe(cfg, gen)
+    else:
+        p["ffn"] = L.init_ffn(cfg, gen)
+    return p
+
+
+def _mlp(cfg: ModelConfig, lp: Params, h, lut, backend, *, dropless=False):
+    """The layer's MLP: the MoE FFN (returning its aux loss; dropless in
+    decode) or the dense one (aux 0)."""
+    if cfg.moe is not None:
+        return L.moe_ffn(cfg, lp["moe"], h, lut, dropless, backend=backend)
+    return L.ffn(cfg, lp["ffn"], h, lut, backend=backend), None
+
+
 def _block_full(cfg: ModelConfig, lp: Params, x, window, lut, backend):
+    if cfg.rwkv is not None:
+        h, _ = L.rwkv_time_mix(cfg, lp["rwkv"], L.rmsnorm(x, lp["ln1"], cfg.norm_eps))
+        x = x + h
+        h, _ = L.rwkv_channel_mix(cfg, lp["rwkv"], L.rmsnorm(x, lp["ln2"], cfg.norm_eps))
+        return x + h, None
+
     h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
-    x = x + L.attention_full(cfg, lp["attn"], h, window, backend=backend)
+    if cfg.mla is not None:
+        attn_out = L.mla_attention_full(cfg, lp["attn"], h)
+    else:
+        attn_out = L.attention_full(cfg, lp["attn"], h, window, backend=backend)
+    if cfg.ssm is not None:  # hybrid: a parallel SSM head fused with attention
+        ssm_out, _ = L.ssm_mix(cfg, lp["ssm"], h)
+        attn_out = 0.5 * (attn_out + ssm_out)
+    x = x + attn_out
     h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    return x + L.ffn(cfg, lp["ffn"], h, lut, backend=backend)
+    mlp_out, aux = _mlp(cfg, lp, h, lut, backend)
+    return x + mlp_out, aux
 
 
 def _head(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
@@ -106,6 +144,38 @@ def to_device_luts(luts, device: torch.device):
     return torch.as_tensor(luts, dtype=torch.int32, device=device)
 
 
+def lut_depth(cfg: ModelConfig) -> int:
+    """The deepest contraction a LUT routes in this model: an FFN's
+    ``w2`` (K = d_ff) or its ``w1``/``w3`` (K = d_model); for MoE the
+    shared experts' (the routed ones run exact); 0 for RWKV, which routes
+    none."""
+    if cfg.rwkv is not None:
+        return 0
+    if cfg.moe is not None:
+        return max(cfg.d_model, cfg.moe.d_ff_expert) if cfg.moe.n_shared else 0
+    return max(cfg.d_model, cfg.d_ff)
+
+
+def check_lut_depth(cfg: ModelConfig, luts, *, backend: ops.Backend = "auto") -> None:
+    """Refuse, before any launch, a table bound for the kernel whose
+    width's int32 accumulator cannot hold this model's deepest
+    LUT-routed product (``WidthSpec.max_k``: 29,140 at W8A8, so
+    command-r-plus-104b's ``w2`` at K = 33,792 is refused there).  The
+    kernel wrapper refuses such a call too, but only when it comes: a
+    forward would have launched the layer's ``w1`` and ``w3`` first."""
+    depth = lut_depth(cfg)
+    leaves = luts.values() if isinstance(luts, dict) else (luts,)
+    for t in leaves:
+        if t is None or not ops.use_kernel(t, backend):
+            continue
+        spec = width_from_lut(t)
+        if depth > spec.max_k:
+            raise ValueError(
+                f"{cfg.name}: a LUT-routed product of depth K = {depth} exceeds "
+                f"the overflow-free int32 depth {spec.max_k} at width "
+                f"{spec.bits}; the kernel route refuses it")
+
+
 def forward_lm(
     cfg: ModelConfig,
     params: Params,
@@ -115,10 +185,13 @@ def forward_lm(
     backend: ops.Backend = "auto",
     device: str | torch.device = "cuda",
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Teacher-forced forward.  Returns (logits (B, S, V) float32, aux),
-    with aux always 0 for the dense family.
+    """Teacher-forced forward.  Returns (logits (B, S_total, V) float32,
+    aux), aux the MoE load-balancing loss summed over the layers (0 for
+    the other families).
 
-    ``batch['tokens']``: (B, S) integer tokens (numpy or tensor).
+    ``batch['tokens']``: (B, S) integer tokens (numpy or tensor).  VLM
+    batches add ``'patches'`` (B, P, d_vision), projected and prepended,
+    so S_total = P + S.
     ``lut``: optional approximate-multiplier table — one (side, side)
     table shared by every layer, or a per-layer (n_layers, side, side)
     stack; side = 16 (W4A4) or 256 (W8A8).  A table bound for the kernel
@@ -130,18 +203,28 @@ def forward_lm(
     check_device(params, dev)
     tokens = torch.as_tensor(batch["tokens"], device=dev).long()
     x = params["embed"][tokens].to(cfg.torch_dtype)
+    if cfg.vision is not None:
+        # the projection accumulates in float32 and rounds once, as the
+        # reference's einsum does (the CPU's bf16 matmul rounds otherwise)
+        patches = torch.as_tensor(batch["patches"], device=dev).to(cfg.torch_dtype)
+        pv = torch.matmul(patches.float(), params["vis_proj"].float())
+        x = torch.cat([pv.to(cfg.torch_dtype), x], dim=1)
 
     win = window_schedule(cfg)
     lut_ = None
     if cfg.approx_mlp and lut is not None:
         lut_ = to_device_luts(lut, dev)
         ops.check_luts(lut_, backend=backend)
+        check_lut_depth(cfg, lut_, backend=backend)
     per_layer_lut = lut_ is not None and lut_.ndim == 3
 
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
     for i, lp in enumerate(params["layers"]):
         lut_i = lut_[i] if per_layer_lut else lut_
-        x = _block_full(cfg, lp, x, layer_window(win, i), lut_i, backend)
-    return _head(cfg, params, x), torch.zeros((), device=dev)
+        x, aux_i = _block_full(cfg, lp, x, layer_window(win, i), lut_i, backend)
+        if aux_i is not None:
+            aux = aux + aux_i
+    return _head(cfg, params, x), aux
 
 
 # ---------------------------------------------------------------------------
@@ -149,32 +232,70 @@ def forward_lm(
 # ---------------------------------------------------------------------------
 def init_decode_caches(cfg: ModelConfig, batch: int, seq_len: int, *,
                        device: str | torch.device = "cuda") -> list[Params]:
-    """One ``{"k", "v"}`` cache per layer, sized by its attention window."""
+    """One cache per layer, sized by that layer's kind: ``{"k", "v"}``
+    sized by its attention window, ``{"ckv", "kr"}`` for MLA's compressed
+    cache, ``{"x_tm", "x_cm", "wkv"}`` for RWKV's recurrent state, and an
+    ``"ssm"`` state beside attention for the hybrid family."""
     _check_family(cfg)
     dev = resolve_device(device)
     win = window_schedule(cfg)
+    dt = cfg.torch_dtype
+
+    def zeros(*shape, dtype=dt):
+        return torch.zeros(shape, dtype=dtype, device=dev)
+
     caches: list[Params] = []
     for layer in range(cfg.n_layers):
-        if isinstance(win, np.ndarray):
-            w = int(win[layer])
-            slots = seq_len if w < 0 else min(w, seq_len)
-        elif isinstance(win, int):
-            slots = min(win, seq_len)
+        if cfg.rwkv is not None:
+            rw = cfg.rwkv
+            H = cfg.d_model // rw.head_dim
+            caches.append({"x_tm": zeros(batch, 1, cfg.d_model),
+                           "x_cm": zeros(batch, 1, cfg.d_model),
+                           "wkv": zeros(batch, H, rw.head_dim, rw.head_dim,
+                                        dtype=torch.float32)})
+            continue
+        if cfg.mla is not None:
+            c = {"ckv": zeros(batch, seq_len, cfg.mla.kv_lora_rank),
+                 "kr": zeros(batch, seq_len, cfg.mla.qk_rope_head_dim)}
         else:
-            slots = seq_len
-        shape = (batch, slots, cfg.n_kv_heads, cfg.hd)
-        caches.append({"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev),
-                       "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)})
+            w = layer_window(win, layer)
+            slots = seq_len if w is None else min(w, seq_len)
+            c = {"k": zeros(batch, slots, cfg.n_kv_heads, cfg.hd),
+                 "v": zeros(batch, slots, cfg.n_kv_heads, cfg.hd)}
+        if cfg.ssm is not None:
+            c["ssm"] = zeros(batch, cfg.ssm.d_inner or cfg.d_model,
+                             cfg.ssm.state_dim, dtype=torch.float32)
+        caches.append(c)
     return caches
 
 
 def _block_decode(cfg: ModelConfig, lp: Params, x, cache: Params, pos, window,
                   lut=None, backend: ops.Backend = "auto"):
+    if cfg.rwkv is not None:
+        h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
+        out, (x_tm, wkv) = L.rwkv_time_mix(cfg, lp["rwkv"], h,
+                                            state=(cache["x_tm"], cache["wkv"]))
+        x = x + out
+        h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
+        out, x_cm = L.rwkv_channel_mix(cfg, lp["rwkv"], h, x_last=cache["x_cm"])
+        # the carried state, written in place once every read of it is done
+        cache["x_tm"].copy_(x_tm)
+        cache["wkv"].copy_(wkv)
+        cache["x_cm"].copy_(x_cm)
+        return x + out
+
     h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
-    attn_out, _ = L.attention_decode(cfg, lp["attn"], h, cache, pos, window)
+    if cfg.mla is not None:
+        attn_out, _ = L.mla_attention_decode(cfg, lp["attn"], h, cache, pos)
+    else:
+        attn_out, _ = L.attention_decode(cfg, lp["attn"], h, cache, pos, window)
+    if cfg.ssm is not None:
+        ssm_out, s = L.ssm_mix(cfg, lp["ssm"], h, state=cache["ssm"])
+        cache["ssm"].copy_(s)
+        attn_out = 0.5 * (attn_out + ssm_out)
     x = x + attn_out
     h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    return x + L.ffn(cfg, lp["ffn"], h, lut, backend=backend)
+    return x + _mlp(cfg, lp, h, lut, backend, dropless=True)[0]
 
 
 def decode_step(
@@ -253,23 +374,33 @@ def init_paged_caches(cfg: ModelConfig, batch: int, n_pages: int,
     """Decode caches for continuous batching: global-attention layers
     share one ``(n_pages + 1, page_size, Hkv, hd)`` page pool each
     (``"kp"``, ``"vp"``; physical page 0 is the allocator's scratch page),
-    sliding-window layers keep a small per-slot ring (``"k"``, ``"v"``:
-    ``(batch, min(window, max_len), Hkv, hd)``; their cache is already
-    bounded by the window).  Families other than the dense one are
-    refused, as the reference refuses recurrent state, which has no
-    positional cache to page."""
-    if cfg.family != "dense":
+    MLA layers a pool of their compressed cache (``"ckvp"``: ``(n_pages +
+    1, page_size, R)``, ``"krp"``: ``(..., rope_d)``), sliding-window
+    layers a small per-slot ring (``"k"``, ``"v"``: ``(batch, min(window,
+    max_len), Hkv, hd)``; their cache is already bounded by the window).
+    Recurrent state (RWKV, SSM) cannot be paged or resumed from KV alone,
+    so those families are refused, with the reference's words."""
+    _check_family(cfg)
+    if cfg.rwkv is not None or cfg.ssm is not None:
         raise ValueError(
-            f"{cfg.name}: continuous batching pages the KV caches of the "
-            f"dense family; family {cfg.family!r} is not ported")
+            f"{cfg.name}: continuous batching pages KV caches; recurrent "
+            f"state (rwkv/ssm) has no positional cache to page — use the "
+            f"fixed-batch engine for this family")
     dev = resolve_device(device)
     win = window_schedule(cfg)
     dt = cfg.torch_dtype
     caches: list[Params] = []
     for layer in range(cfg.n_layers):
-        w = (int(win[layer]) if isinstance(win, np.ndarray)
-             else win if isinstance(win, int) else -1)
-        if w > 0:
+        if cfg.mla is not None:
+            mla = cfg.mla
+            caches.append({
+                "ckvp": torch.zeros((n_pages + 1, page_size, mla.kv_lora_rank),
+                                    dtype=dt, device=dev),
+                "krp": torch.zeros((n_pages + 1, page_size, mla.qk_rope_head_dim),
+                                   dtype=dt, device=dev)})
+            continue
+        w = layer_window(win, layer)
+        if w is not None:
             shape = (batch, min(w, max_len), cfg.n_kv_heads, cfg.hd)
             caches.append({"k": torch.zeros(shape, dtype=dt, device=dev),
                            "v": torch.zeros(shape, dtype=dt, device=dev)})
@@ -284,7 +415,10 @@ def _block_decode_paged(cfg: ModelConfig, lp: Params, x, cache: Params, pos,
                         tables, active, window, lut=None,
                         backend: ops.Backend = "auto"):
     h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
-    if "kp" in cache:
+    if cfg.mla is not None:
+        attn_out, _ = L.mla_attention_decode_paged(cfg, lp["attn"], h, cache,
+                                                   pos, tables, active)
+    elif "kp" in cache:
         attn_out, _ = L.attention_decode_paged(cfg, lp["attn"], h, cache, pos,
                                                tables, active)
     else:
@@ -292,7 +426,7 @@ def _block_decode_paged(cfg: ModelConfig, lp: Params, x, cache: Params, pos,
                                               active, window)
     x = x + attn_out
     h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-    return x + L.ffn(cfg, lp["ffn"], h, lut, backend=backend)
+    return x + _mlp(cfg, lp, h, lut, backend, dropless=True)[0]
 
 
 def decode_step_paged(

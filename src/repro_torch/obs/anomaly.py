@@ -22,15 +22,19 @@ Two pieces:
   within an attribution horizon — "ms/step stepped +4σ, 2 steps after
   swap 3f2a→91cc (event 8c11…)" instead of just "latency went up".
 
-Everything is stdlib-only (``statistics.median`` over small windows) and
-O(window) per observation, so the health plane stays inside the serve
-smoke's ≤2% ms/step overhead gate.
+Everything is stdlib-only and O(window) per observation, so the health
+plane stays inside the serve smoke's ≤2% ms/step overhead gate.  The
+detector keeps a sorted copy of its window beside it, so the median and
+the MAD cost a binary search, where two ``statistics.median`` calls
+sorted the window twice; both give ``statistics.median``'s numbers bit
+for bit.
 
 Own copy of ``repro.obs.anomaly``, whole.
 """
 
 from __future__ import annotations
 
+import bisect
 import dataclasses
 import statistics
 from collections import deque
@@ -150,6 +154,50 @@ class Anomaly:
                    if self.cause is not None else " <- no recent event"))
 
 
+def _median_sorted(data: list[float]) -> float:
+    """``statistics.median`` of an ascending list: the middle value, or
+    the mean of the two middle values for an even count."""
+    n = len(data)
+    if n % 2 == 1:
+        return data[n // 2]
+    i = n // 2
+    return (data[i - 1] + data[i]) / 2
+
+
+def _mad_sorted(data: list[float], med: float) -> float:
+    """``statistics.median(abs(b - med) for b in data)`` for an ascending
+    ``data``, without sorting the deviations.
+
+    The deviations of the values below ``med``, read from ``med``
+    outward, ascend (``abs(b - med)`` is ``med - b`` exactly there), and
+    so do those of the rest: the sorted deviations are the merge of two
+    ascending runs.  A binary search finds how many of the ``n // 2``
+    smallest come from the lower run (the least count whose next lower
+    deviation is no smaller than the last upper one taken); the middle
+    values are then the largest of those taken and the smallest of the
+    others."""
+    n = len(data)
+    j = bisect.bisect_left(data, med)   # data[:j] < med <= data[j:]
+    m = n - j
+    i = n // 2
+    lo, hi = max(0, i - m), min(i, j)
+    while lo < hi:
+        a = (lo + hi) // 2
+        if data[j + i - a - 1] - med <= med - data[j - 1 - a]:
+            hi = a
+        else:
+            lo = a + 1
+    a = lo
+    inf = float("inf")
+    upper = min(med - data[j - 1 - a] if a < j else inf,
+                data[j + i - a] - med if i - a < m else inf)
+    if n % 2 == 1:
+        return upper
+    lower = max(med - data[j - a] if a > 0 else -inf,
+                data[j + i - a - 1] - med if i - a > 0 else -inf)
+    return (lower + upper) / 2
+
+
 class RobustDetector:
     """Streaming EWMA + median/MAD robust z-score detector for one signal.
 
@@ -183,13 +231,28 @@ class RobustDetector:
         self.cooldown = self.warmup if cooldown is None else int(cooldown)
         self.min_scale = float(min_scale)
         self._baseline: deque[float] = deque(maxlen=self.window)
+        self._sorted: list[float] = []   # the window's values, ascending
         self._ewma: float | None = None
         self._refractory = 0
         self.fired = 0
 
+    def _push(self, x: float) -> None:
+        """Append ``x`` to the window, and keep its sorted copy in step:
+        the value a full deque evicts leaves the copy too."""
+        if len(self._baseline) == self.window:
+            old = self._baseline[0]
+            del self._sorted[bisect.bisect_left(self._sorted, old)]
+        self._baseline.append(x)
+        bisect.insort(self._sorted, x)
+
+    def _restart(self, x: float) -> None:
+        self._baseline.clear()
+        self._baseline.append(x)
+        self._sorted[:] = [x]
+
     def _score(self, x: float) -> tuple[float, float]:
-        med = statistics.median(self._baseline)
-        mad = statistics.median(abs(b - med) for b in self._baseline)
+        med = _median_sorted(self._sorted)
+        mad = _mad_sorted(self._sorted, med)
         scale = max(MAD_SIGMA * mad, self.min_scale)
         return (x - med) / scale, med
 
@@ -201,21 +264,20 @@ class RobustDetector:
         x = self._ewma
         if self._refractory > 0:
             self._refractory -= 1
-            self._baseline.append(x)
+            self._push(x)
             return None
         if len(self._baseline) < self.warmup:
-            self._baseline.append(x)
+            self._push(x)
             return None
         z, med = self._score(x)
         if abs(z) < self.threshold:
-            self._baseline.append(x)
+            self._push(x)
             return None
         # fire, then re-baseline at the new regime: the window restarts
         # from the post-change level so a sustained step is one anomaly
         # and the *next* change is judged against the new normal
         self.fired += 1
-        self._baseline.clear()
-        self._baseline.append(x)
+        self._restart(x)
         self._refractory = self.cooldown
         return Anomaly(signal=self.signal, step=int(step), value=x,
                        zscore=z, baseline=med,

@@ -46,19 +46,30 @@ __all__ = [
 def mlp_macs_per_layer(cfg) -> list[int]:
     """Per-layer LUT-routable MLP MACs per generated token, derived from
     the model config.  Counts only matmuls the decode step actually
-    routes through the approximate-operator path; attention and the head
-    are exact compute and never earn a dividend.
+    routes through the approximate-operator path; attention, the MoE
+    router and the routed experts, and the head are exact compute and
+    never earn a dividend.
 
-    The port runs the dense family, whose gated FFN routes ``w1``,
-    ``w3`` and ``w2`` (3·D·F a layer).  Any other family raises
-    :class:`ValueError`, as the reference raises for RWKV: the engine
-    then serves with the cost plane off.
+    Raises :class:`ValueError` for RWKV families — their channel mix
+    bypasses the LUT path entirely, so there is nothing to account — and
+    for the encoder–decoder family, which the port does not run yet; the
+    engine then serves with the cost plane off.
     """
-    if getattr(cfg, "family", "dense") != "dense":
+    if getattr(cfg, "rwkv", None) is not None:
+        raise ValueError(
+            f"{cfg.name}: RWKV channel mix does not route through the LUT "
+            "path; no approx MACs to account")
+    if getattr(cfg, "encoder", None) is not None:
         raise ValueError(
             f"{cfg.name}: family {cfg.family!r} is not ported; no approx "
             "MACs to account")
-    per = 3 * int(cfg.d_model) * int(cfg.d_ff)   # gated FFN: w1, w3, w2
+    d = int(cfg.d_model)
+    if getattr(cfg, "moe", None) is not None:
+        # only the always-on shared experts ride ffn(..., lut); the
+        # sorted top-k dispatch runs exact batched matmuls
+        per = int(cfg.moe.n_shared) * 3 * d * int(cfg.moe.d_ff_expert)
+    else:
+        per = 3 * d * int(cfg.d_ff)        # gated FFN: w1, w3, w2
     return [per] * int(cfg.n_layers)
 
 

@@ -294,6 +294,7 @@ class HealthPlane:
         self.anomalies_fired = 0
         self.pages = 0
         self._last_states: dict[str, str] = {}
+        self._gauges: dict[str | None, tuple] = {}
         self._step = 0
 
     # ----------------------------------------------------------------- events
@@ -333,8 +334,9 @@ class HealthPlane:
         if drift is not None:
             for cls in (classes or {}):
                 self.slo.observe_drift(cls, drift)
-        for cls in self.slo.classes:
-            now = self.slo.class_state(cls)
+        # the classes' states: nothing below changes them before the return
+        states = {cls: self.slo.class_state(cls) for cls in self.slo.classes}
+        for cls, now in states.items():
             before = self._last_states.get(cls, "ok")
             if now != before:
                 transitions.append(
@@ -355,14 +357,11 @@ class HealthPlane:
 
         # export: state gauges ride the registry so the Prometheus text
         # and metric snapshots carry them (satellite: SLO OK/MISS series)
-        for cls in self.slo.classes:
-            st = self.slo.class_state(cls)
-            self.registry.gauge("serve_slo_ok",
-                                **{"class": cls}).set(1.0 if st == "ok"
-                                                      else 0.0)
-            self.registry.gauge("health_state",
-                                **{"class": cls}).set(state_rank(st))
-        self.registry.gauge("health_anomalies").set(self.anomalies_fired)
+        for cls, st in states.items():
+            ok, rank = self._class_gauges(cls)
+            ok.set(1.0 if st == "ok" else 0.0)
+            rank.set(state_rank(st))
+        self._class_gauges(None)[0].set(self.anomalies_fired)
 
         # flight ring: the step frame + current engine shape
         self.recorder.set_context(plan_id=plan_id, level=level,
@@ -396,8 +395,22 @@ class HealthPlane:
                 extra={"health": self.report()})
             if p is not None:
                 dumps.append(str(p))
-        return {"state": self.worst_state, "transitions": transitions,
+        return {"state": _worst(states.values()), "transitions": transitions,
                 "anomalies": anomalies, "dumps": dumps}
+
+    def _class_gauges(self, cls: str | None) -> tuple:
+        """A class's ``serve_slo_ok`` and ``health_state`` gauges (for
+        ``None``, ``health_anomalies``), looked up in the registry once:
+        the registry keeps a metric for its lifetime."""
+        got = self._gauges.get(cls)
+        if got is None:
+            if cls is None:
+                got = (self.registry.gauge("health_anomalies"),)
+            else:
+                got = (self.registry.gauge("serve_slo_ok", **{"class": cls}),
+                       self.registry.gauge("health_state", **{"class": cls}))
+            self._gauges[cls] = got
+        return got
 
     def record_crash(self, exc: BaseException) -> str | None:
         """Dump the ring on an engine crash; re-raise at the call site."""

@@ -66,7 +66,7 @@ from ..kernels import ops
 from ..library.qos import (LayerPlan, plan_layer_areas, refresh_plan,
                            stack_luts, validate_lut_stack)
 from ..models import decode_fn, decode_paged_fn, init_caches, init_paged_caches
-from ..models.lm import check_device, to_device_luts
+from ..models.lm import check_device, check_lut_depth, to_device_luts
 from ..obs.trace import current_tracer
 from ..obs.trace import event as trace_event
 from ..obs.trace import span as trace_span
@@ -141,8 +141,10 @@ class BatchStats:
 
 class StaticStep:
     """The engine's decode step over fixed buffers: ``tok`` ``(B, 1)``
-    int32, ``pos`` ``(1,)`` long, ``caches`` (one ``{"k", "v"}`` per
-    layer), ``luts`` (the stack the step reads, a dict per width group for
+    int32, ``pos`` ``(1,)`` long, ``caches`` (one dict a layer, from
+    :func:`repro_torch.models.init_caches`: KV, MLA's compressed cache,
+    or the SSM's and RWKV's recurrent state, all written in place),
+    ``luts`` (the stack the step reads, a dict per width group for
     a mixed map, or ``None``) and ``logits`` ``(B, V)`` float32.
 
     On a CUDA device the step is warmed up on a side stream and captured
@@ -267,8 +269,9 @@ class PagedStaticStep(StaticStep):
     """The continuous engine's decode step over fixed buffers: ``tok``
     ``(S, 1)`` int32, ``pos`` ``(S,)`` long, ``active`` ``(S,)`` bool,
     ``tables`` ``(S, T)`` long, ``caches`` (:func:`repro_torch.models.init_paged_caches`:
-    a page pool ``{"kp", "vp"}`` per global layer, a per-slot ring
-    ``{"k", "v"}`` per windowed one), ``luts`` and ``logits`` ``(S, V)``.
+    a page pool ``{"kp", "vp"}`` per global layer, ``{"ckvp", "krp"}``
+    per MLA layer, a per-slot ring ``{"k", "v"}`` per windowed one),
+    ``luts`` and ``logits`` ``(S, V)``.
 
     Captured once on a card and run eagerly on the CPU, as
     :class:`StaticStep`.  Each step the host writes its numpy inputs with
@@ -423,6 +426,8 @@ class ServingEngine:
             self.widths = ()
         for t in _leaves(self._luts) if self._luts is not None else ():
             ops.check_luts(t, backend=backend)
+        if self._luts is not None:
+            check_lut_depth(cfg, self._luts, backend=backend)
 
     # ----------------------------------------------------------------- state
     @property
@@ -981,9 +986,6 @@ class ContinuousServingEngine(ServingEngine):
     def __init__(self, cfg, params, *, max_slots: int, prompt_len: int,
                  gen_len: int, page_size: int = 8, n_pages: int | None = None,
                  steps_per_tick: int | None = None, **kw) -> None:
-        if cfg.family != "dense":
-            raise ValueError(f"{cfg.name}: continuous batching serves the "
-                             f"dense family; {cfg.family!r} is not ported")
         self.max_slots = int(max_slots)
         self.page_size = int(page_size)
         total = int(prompt_len) + int(gen_len)

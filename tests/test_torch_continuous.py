@@ -389,10 +389,17 @@ def test_paged_static_step_matches_eager():
 
 
 def test_paged_caches_refuse_other_families():
-    _, ct = _configs("qwen3-4b", "float32", False)
-    moe = dataclasses.replace(ct, family="moe")
-    with pytest.raises(ValueError, match="dense"):
-        init_paged_caches(moe, 2, 4, 4, 8, device="cpu")
+    """The recurrent families (RWKV, the hybrid SSM) have no positional
+    cache to page: refused with the reference's words."""
+    for arch in ("rwkv6-3b", "hymba-1.5b"):
+        cj = jax_config(arch, reduced=True)
+        ct = ModelConfig(**{f.name: getattr(cj, f.name)
+                            for f in dataclasses.fields(ModelConfig)})
+        with pytest.raises(ValueError) as want:
+            jlm.init_paged_caches(cj, 2, 4, 4, 8)
+        with pytest.raises(ValueError, match="recurrent") as got:
+            init_paged_caches(ct, 2, 4, 4, 8, device="cpu")
+        assert str(got.value) == str(want.value)
 
 
 # ---------------------------------------------------------------------------

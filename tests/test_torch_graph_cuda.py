@@ -273,3 +273,107 @@ def test_paged_save_and_restore_round_trip_the_pools(cuda, library):
     for c, w in zip(st.caches, want):
         assert set(c) == {"kp", "vp"}
         assert all(torch.equal(c[k], w[k]) for k in c)
+
+
+# ---------------------------------------------------------------------------
+# the other decoder-only families (reduced, bf16): MoE, MLA, SSM, RWKV
+# ---------------------------------------------------------------------------
+def _family_stack(n_layers: int) -> np.ndarray:
+    ex = np.arange(16)[:, None] * np.arange(16)[None, :]
+    return np.stack([ex if i % 2 == 0 else ex & ~3
+                     for i in range(n_layers)]).astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "mixtral-8x7b",
+                                  "hymba-1.5b", "rwkv6-3b"])
+def test_family_replay_equals_the_eager_step(cuda, arch):
+    """The fixed engine's captured step against ``decode_fn`` called
+    eagerly on the kernel route: tokens and final logits bit for bit,
+    captured once.  MoE's dispatch (sorts, counts, gathers) keeps every
+    shape static and reads nothing back; MLA writes its compressed cache,
+    the SSM and RWKV their recurrent state, in place."""
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              dtype="bfloat16").with_approx_mlp(4)
+    params = init_model(cfg, seed=0, device=cuda)
+    stack = _family_stack(cfg.n_layers)
+    eng = ServingEngine(cfg, params, batch=2, prompt_len=PROMPT, gen_len=GEN,
+                        luts=stack, device=cuda)
+    reqs = synth_requests(steady(1, 2, prompt_len=PROMPT, gen_len=GEN),
+                          cfg.vocab_size, 0)[0]
+    am.approx_matmul_w4.launches = 0
+    eng.run_batch(reqs)
+    eng.run_batch(reqs)
+    tokens, logits = _eager(eng, reqs, stack)
+    assert np.array_equal(eng.last_tokens, tokens)
+    assert torch.equal(eng.static_step.logits, logits)
+    assert eng.trace_count == 1
+    per_replay = eng.static_step.launches_per_replay.get("approx_matmul_w4", 0)
+    shared = cfg.moe.n_shared if cfg.moe is not None else 1
+    want = 0 if arch in ("mixtral-8x7b", "rwkv6-3b") else 3 * shared * cfg.n_layers
+    assert per_replay == want
+
+
+@pytest.mark.cuda
+def test_paged_family_replay_equals_the_eager_paged_step(cuda):
+    """Reduced deepseek-v2-lite's paged step (MLA page pools, MoE
+    dropless) captured once, against the eager paged step."""
+    cfg = dataclasses.replace(get_config("deepseek-v2-lite-16b", reduced=True),
+                              dtype="bfloat16").with_approx_mlp(4)
+    params = init_model(cfg, seed=0, device=cuda)
+    stack = _family_stack(cfg.n_layers)
+    eng = ContinuousServingEngine(cfg, params, max_slots=3, prompt_len=8,
+                                  gen_len=8, page_size=4, luts=stack, device=cuda)
+    eng.start()
+    st = eng.static_step
+    S, T = eng.max_slots, eng.table_entries
+    caches = init_paged_caches(cfg, S, eng.n_pages, eng.page_size, eng.total,
+                               device=cuda)
+    alloc = PageAllocator(eng.n_pages, eng.page_size)
+    luts = torch.as_tensor(stack, device=cuda)
+    rng = np.random.default_rng(0)
+    pos = {}
+    for step in range(12):
+        toks = np.zeros((S, 1), np.int32)
+        p = np.zeros(S, np.int64)
+        act = np.zeros(S, bool)
+        tab = np.zeros((S, T), np.int64)
+        for slot, join in ((0, 0), (2, 3)):
+            if step == join:
+                alloc.alloc(slot, eng.total)
+                pos[slot] = 0
+            if slot in pos:
+                toks[slot, 0] = rng.integers(0, cfg.vocab_size)
+                p[slot], act[slot] = pos[slot], True
+                tab[slot] = alloc.padded_table(slot, T)
+                pos[slot] += 1
+        st.write(toks, p, act, tab)
+        got = st.replay()
+        args = [torch.from_numpy(a).to(cuda) for a in (toks, p, act, tab)]
+        want, _ = decode_paged_fn(cfg)(cfg, eng.params, caches, *args, luts=luts)
+        rows = torch.from_numpy(np.flatnonzero(act)).to(cuda)
+        assert torch.equal(got[rows], want[rows]), step
+    assert eng.trace_count == 1
+
+
+@pytest.mark.cuda
+def test_command_r_w8a8_is_refused_before_any_launch(cuda):
+    """command-r-plus-104b's ``w2`` contracts over d_ff = 33,792, past
+    W8A8's overflow-free depth 29,140: the forward and the engine refuse
+    the stack before any kernel launches.  Checked on a 1-layer cut with
+    a small vocabulary, at full width."""
+    from repro_torch.models.lm import forward_lm
+    from repro_torch.precision.compose import tile_to_width
+
+    cfg = dataclasses.replace(get_config("command-r-plus-104b"), n_layers=1,
+                              vocab_size=256).with_approx_mlp(8)
+    params = init_model(cfg, seed=0, device=cuda)
+    ex = np.arange(16)[:, None] * np.arange(16)[None, :]
+    stack = tile_to_width(ex)[None].astype(np.int32)
+    am.approx_matmul_w8.launches = 0
+    with pytest.raises(ValueError, match="33792 exceeds the overflow-free"):
+        forward_lm(cfg, params, {"tokens": [[1, 2, 3]]}, lut=stack, device=cuda)
+    with pytest.raises(ValueError, match="33792 exceeds the overflow-free"):
+        ServingEngine(cfg, params, batch=1, prompt_len=2, gen_len=2, luts=stack,
+                      device=cuda)
+    assert am.approx_matmul_w8.launches == 0

@@ -235,6 +235,60 @@ def test_health_modules_match_reference(case, tmp_path):
         assert [st for st, _, _ in port[0]] == ["ok", "page", "page", "warn", "warn", "ok"]
 
 
+def _long_series(seed: int, n: int = 6000) -> list[float]:
+    """Seeded noise around level shifts, spikes, ramps, exact repeats
+    (ties in the window) and runs of a constant (a zero MAD)."""
+    rng = np.random.default_rng(seed)
+    out, level = [], 10.0
+    while len(out) < n:
+        kind = rng.integers(0, 5)
+        m = int(rng.integers(20, 160))
+        if kind == 0:
+            level *= float(rng.choice([0.3, 2.5, 4.0]))
+            seg = level + 0.05 * level * rng.standard_normal(m)
+        elif kind == 1:
+            seg = level + 0.02 * level * rng.standard_normal(m)
+            seg[m // 2] *= 20.0
+        elif kind == 2:
+            seg = level + level * np.linspace(0.0, 1.5, m)
+        elif kind == 3:
+            seg = np.round(level + rng.standard_normal(m), 1)
+        else:
+            seg = np.full(m, level)
+        out.extend(float(v) for v in seg)
+    return out[:n]
+
+
+@pytest.mark.parametrize("det", [{}, dict(DET), dict(window=33, warmup=5, alpha=0.5)],
+                         ids=["defaults", "alpha1-w32", "odd-window"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_detector_bit_equal_to_reference_over_a_long_series(det, seed):
+    """The port's detector keeps a sorted copy of its window (and sorts
+    the deviations once) where the reference calls ``statistics.median``
+    twice.  Over a long series with many fires, every score, every fire
+    and every window equal the reference's bit for bit: the median and
+    MAD of each scored step, each anomaly's value, z-score and baseline,
+    and the window (and its sorted copy) after each observation."""
+    series = _long_series(seed)
+    ref = jax_anomaly.RobustDetector("s", **det)
+    port = port_anomaly.RobustDetector("s", **det)
+    scored = 0
+    for i, v in enumerate(series):
+        if len(ref._baseline) >= ref.warmup and ref._refractory == 0:
+            assert port._score(v) == ref._score(v)
+            scored += 1
+        a, b = ref.observe(v, i), port.observe(v, i)
+        assert (a is None) == (b is None), i
+        if a is not None:
+            assert (b.value, b.zscore, b.baseline, b.direction, b.step) == \
+                (a.value, a.zscore, a.baseline, a.direction, a.step)
+        assert list(port._baseline) == list(ref._baseline)
+        assert port._sorted == sorted(ref._baseline)
+        assert port._ewma == ref._ewma
+    assert port.fired == ref.fired >= 10
+    assert scored > len(series) // 2
+
+
 def test_health_plane_overhead_is_negligible():
     """At most 2% of a 10 ms decode step, as the reference's budget.  The
     cost is the best of five runs of 2000 steps, each on a fresh plane:

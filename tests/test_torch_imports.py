@@ -21,12 +21,17 @@ def test_port_imports_no_jax_and_no_reference():
         "for m in mods: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
-        "print(len(mods))\n"
+        "print(' '.join(mods))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                          capture_output=True, text=True,
                          env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""})
-    assert int(out.stdout.strip()) >= 77  # every module of slices 1 to 10
+    mods = set(out.stdout.split())
+    assert len(mods) >= 83  # every module of the port
+    # the configs of every decoder-only family
+    assert {f"repro_torch.configs.{m}" for m in (
+        "command_r_plus_104b", "internvl2_1b", "mixtral_8x7b",
+        "deepseek_v2_lite_16b", "hymba_1_5b", "rwkv6_3b")} <= mods
 
 
 def test_port_sources_name_no_jax_import():

@@ -190,7 +190,7 @@ def test_params_from_jax_keeps_dtypes_and_splits_layers():
 
 def test_unported_architectures_raise():
     with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("rwkv6-3b", reduced=True)
+        get_config("whisper-tiny", reduced=True)
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     assert get_config("gemma3-1b", reduced=True).name == "gemma3-1b-reduced"

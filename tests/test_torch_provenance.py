@@ -35,7 +35,7 @@ from repro_torch import serving as port_serving  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.library.compile import load_mul_frontier  # noqa: E402
-from repro_torch.models.config import ModelConfig  # noqa: E402
+from repro_torch.models.config import EncoderConfig, ModelConfig  # noqa: E402
 from repro_torch.obs import costs as port_costs  # noqa: E402
 from repro_torch.obs import provenance as port_prov  # noqa: E402
 from repro_torch.obs import requests as port_requests  # noqa: E402
@@ -296,8 +296,11 @@ def test_mlp_macs_per_layer():
         m = port_costs.mlp_macs_per_layer(ct)
         assert m == jax_costs.mlp_macs_per_layer(cj)
         assert m == [3 * ct.d_model * ct.d_ff] * ct.n_layers
+    with pytest.raises(ValueError, match="RWKV"):
+        port_costs.mlp_macs_per_layer(get_config("rwkv6-3b", reduced=True))
     with pytest.raises(ValueError, match="not ported"):
-        port_costs.mlp_macs_per_layer(dataclasses.replace(ct, family="moe"))
+        port_costs.mlp_macs_per_layer(dataclasses.replace(
+            ct, family="audio", encoder=EncoderConfig()))
 
 
 def test_lifecycle_event_overhead_is_negligible_when_off():
