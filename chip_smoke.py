@@ -95,7 +95,21 @@ failing the run on any mismatch:
    the family, fixed-batch for the recurrent ones and command-r), captured
    once, identical tokens and one step's logits bit-equal; command-r's
    W8A8 stack refused before any launch;
-10. print the kernels line (launches on the main path, deviations, times,
+10. the encoder–decoder family and training (``[train]`` lines):
+   whisper-tiny at full width (``forward_encdec`` at B=2 S=448 timed,
+   decode at position 0 within 2e-2 of the teacher-forced forward,
+   ``python -m repro_torch.launch.serve --arch whisper-tiny`` with the
+   warm-up staging cross K/V, captured once, ``--library`` and
+   ``--continuous`` refused, a replay bit-equal to the eager step);
+   stablelm-1.6b trained 5 steps at batch 8x128 through
+   ``repro_torch.launch.train.main`` (loss finite, grad norm > 0, every
+   parameter changed, ms a step by CUDA events, tokens/s, peak memory, no
+   kernel launched: the step differentiates the plain route); the
+   gradient guard raising before any launch; microbatches 2 against 1; a
+   step bit-equal with and without deterministic algorithms; resume bit
+   for bit through the launcher for whisper-tiny and reduced mixtral; and
+   ``python -m repro_torch.examples.train_small`` exiting 0;
+11. print the kernels line (launches on the main path, deviations, times,
    bounds), where a decode step's time goes, the card's name and power
    limit, and a last line of JSON.
 
@@ -1425,10 +1439,11 @@ def drain_order(per_tick, book, batch: int) -> list:
     return out
 
 
-def eager_batch(torch, eng, reqs, luts, backend="auto"):
+def eager_batch(torch, eng, reqs, luts, backend="auto", warmup=None):
     """One batch through ``decode_fn`` called directly, position by
-    position, on fresh caches: the eager route the engine's captured step
-    must reproduce.  Returns (tokens, the last step's logits)."""
+    position, on fresh caches (staged by ``warmup`` if given): the eager
+    route the engine's captured step must reproduce.  Returns (tokens,
+    the last step's logits)."""
     import numpy as np
 
     from repro_torch.models import decode_fn, init_caches
@@ -1437,11 +1452,13 @@ def eager_batch(torch, eng, reqs, luts, backend="auto"):
     cfg, dev = eng.cfg, torch.device("cuda")
     step = decode_fn(cfg)
     caches = init_caches(cfg, eng.batch, eng.total, device=dev)
+    if warmup is not None:
+        warmup(caches)
     prompts = np.zeros((eng.batch, eng.prompt_len), np.int32)
     for i, r in enumerate(reqs):
         prompts[i, :len(r.tokens)] = r.tokens
     prompts = torch.from_numpy(prompts).to(dev)
-    stack = to_device_luts(luts, dev)
+    stack = None if luts is None else to_device_luts(luts, dev)
 
     def run(tok, t):
         return step(cfg, eng.params, caches, tok, t, luts=stack,
@@ -3081,6 +3098,384 @@ def phase_families(torch, library: Path, results: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the encoder–decoder family and training
+# ---------------------------------------------------------------------------
+# whisper-tiny's forward and serve; stablelm-1.6b's training run through
+# the launcher; the resume runs (arch, reduced, launcher flags)
+WHISPER_FWD = (2, 448)
+WHISPER_SERVE = {"batch": 4, "prompt": 8, "gen": 24}
+TRAIN_RUN = ["--arch", "stablelm-1.6b", "--steps", 5, "--batch", 8, "--seq", 128,
+             "--log-every", 1]
+RESUME_RUNS = [("whisper-tiny", False, ["--batch", 4, "--seq", 64]),
+               ("mixtral-8x7b", True, ["--batch", 4, "--seq", 32])]
+TRAIN_SMALL_STEPS = 300
+
+
+def phase_train(torch, results: dict) -> None:
+    """The encoder–decoder family at full width (forward, decode against
+    the forward at position 0, the serve launcher with its warm-up, a
+    replay bit-equal to the eager step, the two refusals), then training:
+    stablelm-1.6b through ``repro_torch.launch.train.main``, the gradient
+    guard, microbatches, a default step against one under
+    ``torch.use_deterministic_algorithms``, resume bit for bit through the
+    launcher, and the ``train_small`` example.  The train step
+    differentiates the plain route: no kernel launches while training."""
+    import tempfile
+
+    out: dict = {}
+    results["train"] = out
+    work = ROOT / "build" / "train"
+    work.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=work) as tmp:
+        tmp = Path(tmp)
+        out["whisper"] = train_whisper(torch, tmp)
+        release(torch)
+        out["stablelm"] = train_stablelm(torch)
+        release(torch)
+        out["microbatches"] = train_microbatches(torch)
+        out["deterministic"] = {arch: train_deterministic(torch, arch, reduced)
+                                for arch, reduced, _ in RESUME_RUNS}
+        release(torch)
+        out["resume"] = {arch: train_resume(torch, arch, reduced, extra, tmp)
+                         for arch, reduced, extra in RESUME_RUNS}
+        release(torch)
+        out["train_small"] = train_small_run(torch, tmp)
+    # the training path launches no kernel: each kernel's count there is 0
+    credit(results, "training", out["stablelm"]["launches"],
+           *out["stablelm"]["launches"])
+
+
+def tree_leaves(tree) -> list:
+    from repro_torch.train.optim import tree_leaves as leaves
+
+    return leaves(tree)
+
+
+def train_whisper(torch, tmp: Path) -> dict:
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models import encdec, init_model
+    from repro_torch.serving import ServingEngine, steady, synth_requests
+    from repro_torch.train import DataState, synth_batch
+
+    arch = "whisper-tiny"
+    cfg = get_config(arch)
+    params = init_model(cfg, seed=0, device="cuda")
+    n = sum(t.numel() for t in tree_leaves(params))
+    B, S = WHISPER_FWD
+    batch = synth_batch(cfg, B, S, DataState(0, 0), device="cuda")
+    reset_counts()
+    with torch.no_grad():
+        logits = encdec.forward_encdec(cfg, params, batch)[0]
+        ms = time_ms(torch, lambda: encdec.forward_encdec(cfg, params, batch), iters=5)
+    counts = read_counts()
+    require(tuple(logits.shape) == (B, S, cfg.vocab_size)
+            and bool(torch.isfinite(logits).all()) and not any(counts.values()),
+            f"{arch} forward: shape {tuple(logits.shape)}, launches {counts}")
+    log(f"[train] {arch}: {n / 1e6:.1f} M parameters ({cfg.n_params() / 1e6:.1f} M by "
+        f"the config's count), {cfg.encoder.n_frames} frames, vocab {cfg.vocab_size}; "
+        f"forward_encdec B={B} S={S}: {ms:.3f} ms (CUDA events, 5 calls), logits finite, "
+        f"no kernel launched (every attention takes the masked-softmax path, the "
+        f"GELU FFNs no LUT)")
+
+    with torch.no_grad():
+        caches = encdec.prefill_cross(cfg, params, batch["frames"],
+                                      encdec.init_encdec_caches(cfg, B, S))
+        dlogit = [float((encdec.decode_step_encdec(
+            cfg, params, caches, batch["tokens"][:, t:t + 1], t)[0]
+            - logits[:, t]).abs().max()) for t in range(8)]
+    require(dlogit[0] < 2e-2, f"{arch} decode at position 0: {dlogit}")
+    log(f"[train] {arch} decode against the teacher-forced forward: position 0 "
+        f"max |dlogit| {dlogit[0]:.4g} (< 2e-2); positions 1-7 "
+        f"{', '.join(f'{d:.3g}' for d in dlogit[1:])} (decode applies RoPE, the "
+        f"forward does not, as in the reference)")
+
+    sv = WHISPER_SERVE
+    bench = tmp / "whisper_serve.json"
+    argv = ["--arch", arch, "--batch", sv["batch"], "--prompt-len", sv["prompt"],
+            "--gen-len", sv["gen"], "--ticks", 2]
+    reset_counts()
+    _, text, secs = run_cli(torch, "train_whisper_serve", serve_cli.main,
+                            argv + ["--bench-json", bench])
+    s = json.loads(bench.read_text())
+    counts = read_counts()
+    require(s["trace_count"] == 1 and s["requests"] == 2 * sv["batch"]
+            and not any(counts.values()),
+            f"{arch} launcher: {json.dumps(s)[:400]}, launches {counts}")
+    log(f"[train] python -m repro_torch.launch.serve --arch {arch} (batch {sv['batch']}, "
+        f"prompt {sv['prompt']}, gen {sv['gen']}, 2 batches, cross K/V staged by the "
+        f"warm-up): {s['requests']} requests, {s['ms_per_step']:.3f} ms a step, "
+        f"decode {s['decode_tok_s']:.1f} tok/s, captured {s['trace_count']}x, "
+        f"{secs:.1f} s in all (init included)")
+    refused = {}
+    for name, flag in (("library", ["--library", tmp / "no_library"]),
+                       ("continuous", ["--continuous"])):
+        try:
+            serve_cli.main([str(a) for a in argv + flag])
+            refused[name] = None
+        except SystemExit as e:
+            refused[name] = str(e)
+        require(refused[name] is not None and "LM families only" in refused[name],
+                f"{arch} --{name} not refused: {refused[name]}")
+    log(f"[train] {arch} refused: --library ({refused['library']!r}), --continuous "
+        f"({refused['continuous']!r})")
+
+    frames = synth_batch(cfg, sv["batch"], 1, DataState(1, 0), device="cuda")["frames"]
+
+    def warm(c):
+        return encdec.prefill_cross(cfg, params, frames, c)
+
+    eng = ServingEngine(cfg, params, batch=sv["batch"], prompt_len=sv["prompt"],
+                        gen_len=sv["gen"], warmup_caches=warm, device="cuda")
+    reqs = synth_requests(steady(1, sv["batch"], prompt_len=sv["prompt"],
+                                 gen_len=sv["gen"]), cfg.vocab_size, 0)[0]
+    stats = eng.run_batch(reqs)
+    with torch.no_grad():
+        tokens, eager_logits = eager_batch(torch, eng, reqs, None, warmup=warm)
+    require(np.array_equal(eng.last_tokens, tokens)
+            and torch.equal(eng.static_step.logits, eager_logits)
+            and eng.trace_count == 1,
+            f"{arch}: the replay differs from the eager decode step")
+    log(f"[train] {arch} engine: the last replay's logits bit-equal to the eager "
+        f"decode_step_encdec route's, tokens identical, captured once "
+        f"({eng.static_step.capture_s:.2f} s); {stats.ms_per_step:.3f} ms a step")
+    return {"n_params": n, "forward_ms": ms, "decode_dlogit": dlogit,
+            "serve": s, "serve_seconds": secs, "refused": refused,
+            "engine_ms_per_step": stats.ms_per_step}
+
+
+def train_stablelm(torch) -> dict:
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models import init_model, lm
+    from repro_torch.train import DataState, synth_batch
+
+    argv = TRAIN_RUN
+    steps, B, S = (argv[argv.index(k) + 1] for k in ("--steps", "--batch", "--seq"))
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    run, text, secs = run_cli(torch, "train_stablelm", train_cli.main, argv)
+    counts = read_counts()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    cfg = get_config("stablelm-1.6b")
+    params = run["params"]
+    before = init_model(cfg, seed=0, device="cuda")    # the launcher's init
+    leaves = tree_leaves(params)
+    changed = sum(not torch.equal(a, b) for a, b in zip(leaves, tree_leaves(before)))
+    del before
+    losses, gnorms, step_ms = run["losses"], run["grad_norms"], run["step_ms"]
+    ms = float(np.mean(step_ms[1:]))
+    tok_s = B * S / (ms / 1e3)
+    require(len(losses) == steps and all(np.isfinite(losses)) and min(gnorms) > 0
+            and changed == len(leaves) and not any(counts.values()),
+            f"stablelm-1.6b training: losses {losses}, grad norms {gnorms}, "
+            f"{changed} of {len(leaves)} tensors changed, launches {counts}")
+    log(f"[train] python -m repro_torch.launch.train {' '.join(map(str, argv))}: "
+        f"{run['n_params'] / 1e9:.3f} B parameters, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (finite), grad norm {min(gnorms):.3f}-{max(gnorms):.3f} "
+        f"(> 0), all {len(leaves)} parameter tensors changed; {ms:.1f} ms a step "
+        f"(CUDA events, mean of steps 2-{steps}; step 1 {step_ms[0]:.1f} ms), "
+        f"{tok_s:.0f} tokens/s, peak allocated {peak:.2f} GiB over the run "
+        f"(weights, gradients, moments, activations); kernel launches "
+        f"{sum(counts.values())} (the step differentiates the plain route); "
+        f"{secs:.1f} s in all")
+
+    # the guard: a loss on the kernel route over parameters that require
+    # grad raises before any launch
+    live = dict(params)
+    live["embed"] = params["embed"].detach().requires_grad_(True)
+    batch = synth_batch(cfg, 2, 16, DataState(0, 0), device="cuda")
+    reset_counts()
+    try:
+        lm.lm_loss(cfg, live, batch, backend="auto")
+        guard = None
+    except RuntimeError as e:
+        guard = str(e)
+    after = read_counts()
+    require(guard is not None and "require grad" in guard and not any(after.values()),
+            f"the gradient guard: {guard!r}, launches {after}")
+    log(f"[train] lm_loss(backend='auto') on parameters that require grad: "
+        f"RuntimeError before any launch ({guard[:60]!r}...)")
+    del live
+    split = train_step_split(torch, cfg, run["params"], run["opt_state"], B, S)
+    del params, run
+    return {"losses": losses, "grad_norms": gnorms, "step_ms": step_ms,
+            "ms_per_step": ms, "tokens_per_s": tok_s, "peak_allocated_gib": peak,
+            "changed": changed, "tensors": len(leaves), "launches": counts,
+            "seconds": secs, "guard": guard, "split": split}
+
+
+def train_step_split(torch, cfg, params, opt_state, B: int, S: int) -> dict:
+    """Where a train step's time goes: the loss with its gradients and the
+    AdamW update timed apart by CUDA events, then one whole step profiled
+    by kernel (``torch.profiler``)."""
+    from repro_torch.models import loss_fn
+    from repro_torch.train import (DataState, OptimizerConfig, apply_updates,
+                                   make_train_step, synth_batch)
+    from repro_torch.train.optim import tree_map
+
+    batch = synth_batch(cfg, B, S, DataState(0, 99), device="cuda")
+    opt_cfg = OptimizerConfig(lr=3e-4)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    value = loss_fn(cfg)(cfg, live, batch, backend="ref")
+    grads = torch.autograd.grad(value, tree_leaves(live))
+    ev[1].record()
+    apply_updates(opt_cfg, params, list(grads), opt_state)
+    ev[2].record()
+    ev[2].synchronize()
+    grad_ms, update_ms = ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+    del live, grads, value
+    log(f"[train] stablelm-1.6b step split (CUDA events, one step): loss and "
+        f"gradients {grad_ms:.1f} ms, AdamW update {update_ms:.1f} ms")
+    step = make_train_step(cfg, opt_cfg, remat="none")
+    prof = profile_step(torch, lambda: step(params, opt_state, batch),
+                        tag="[train] stablelm-1.6b step:")
+    return {"grad_ms": grad_ms, "update_ms": update_ms, **prof}
+
+
+def train_microbatches(torch) -> dict:
+    """``microbatches=2`` against 1 on reduced stablelm (bf16): the loss
+    within 2e-2, the reference's own bound."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    from repro_torch.train import (DataState, OptimizerConfig, init_opt_state,
+                                   make_train_step, synth_batch)
+
+    cfg = get_config("stablelm-1.6b", reduced=True)
+    batch = synth_batch(cfg, 8, 32, DataState(2, 0), device="cuda")
+    losses = []
+    for mb in (1, 2):
+        p = init_model(cfg, seed=2, device="cuda")
+        _, _, m = make_train_step(cfg, OptimizerConfig(), microbatches=mb,
+                                  remat="none")(p, init_opt_state(p), batch)
+        losses.append(float(m["loss"]))
+    d = abs(losses[0] - losses[1])
+    require(d < 2e-2, f"microbatches: losses {losses}")
+    log(f"[train] reduced stablelm, microbatches 2 against 1: loss {losses[1]:.5f} "
+        f"against {losses[0]:.5f}, |d| {d:.2e} (< 2e-2)")
+    return {"losses": losses, "diff": d}
+
+
+def train_deterministic(torch, arch: str, reduced: bool) -> dict:
+    """One train step in the default mode against the same step under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)``: an op
+    with a nondeterministic CUDA default (atomics) either warns there or,
+    where it has a deterministic variant, sums in another order: every
+    parameter must come out bit-equal, and the warnings are reported."""
+    import os
+    import warnings
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model
+    from repro_torch.train import (DataState, OptimizerConfig, init_opt_state,
+                                   make_train_step, synth_batch)
+
+    cfg = get_config(arch, reduced=reduced)
+    batch = synth_batch(cfg, 4, 32, DataState(0, 0), device="cuda")
+    step = make_train_step(cfg, OptimizerConfig(lr=1e-3), remat="none")
+    runs = []
+    caught: list = []
+    env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    for deterministic in (False, True):
+        p = init_model(cfg, seed=0, device="cuda")
+        if deterministic:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+            torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as w:
+                warnings.simplefilter("always")
+                step(p, init_opt_state(p), batch)
+                torch.cuda.synchronize()
+            if deterministic:
+                caught = sorted({str(x.message)[:120] for x in w})
+        finally:
+            torch.use_deterministic_algorithms(False)
+            if env is None:
+                os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+            else:
+                os.environ["CUBLAS_WORKSPACE_CONFIG"] = env
+        runs.append(tree_leaves(p))
+    same = all(torch.equal(a, b) for a, b in zip(*runs))
+    require(same, f"{arch}: a train step under deterministic algorithms "
+                  f"differs from the default one (warnings: {caught})")
+    log(f"[train] {cfg.name}: one train step bit-equal with and without "
+        f"torch.use_deterministic_algorithms; warnings there: "
+        + ("; ".join(caught) if caught else "none"))
+    return {"bit_equal": same, "warnings": caught}
+
+
+def train_resume(torch, arch: str, reduced: bool, extra: list, tmp: Path) -> dict:
+    """Through the launcher: 4 steps straight (saving at 2 and 4), then a
+    restart from the straight run's step-2 checkpoint to step 4; the two
+    step-4 checkpoints (every parameter, moment and the step) bit-equal."""
+    import numpy as np
+
+    from repro_torch.launch import train as train_cli
+
+    d = tmp / f"resume_{arch}"
+    a, b = d / "straight", d / "resumed"
+    argv = ["--arch", arch, *(["--reduced"] if reduced else []), "--steps", 4,
+            "--log-every", 1, *extra]
+    reset_counts()
+    _, _, secs_a = run_cli(torch, f"train_resume_{arch}_straight", train_cli.main,
+                           argv + ["--ckpt-dir", a, "--ckpt-every", 2])
+    b.mkdir(parents=True)
+    shutil.copytree(a / "step_00000002", b / "step_00000002")
+    (b / "LATEST").write_text("step_00000002")
+    _, text, secs_b = run_cli(torch, f"train_resume_{arch}_resumed", train_cli.main,
+                              argv + ["--ckpt-dir", b])
+    counts = read_counts()
+    with np.load(a / "step_00000004" / "arrays.npz") as za, \
+            np.load(b / "step_00000004" / "arrays.npz") as zb:
+        keys = sorted(za.files)
+        same = keys == sorted(zb.files) and all(
+            za[k].dtype == zb[k].dtype and np.array_equal(za[k], zb[k]) for k in keys)
+        n_params = sum(1 for k in keys if k.startswith("params/"))
+    shutil.rmtree(d)
+    require("resumed from step 2" in text and same and not any(counts.values()),
+            f"{arch} resume: bit-equal {same}, launches {counts}")
+    name = arch + (" (reduced)" if reduced else "")
+    log(f"[train] {name} resume through the launcher ({' '.join(map(str, extra))}): "
+        f"4 steps straight against 2 + checkpoint + restore + 2, every array of "
+        f"the step-4 checkpoints bit-equal ({n_params} parameter arrays, moments "
+        f"and step; {len(keys)} in all); {secs_a:.1f} s and {secs_b:.1f} s")
+    return {"bit_equal": same, "arrays": len(keys), "seconds": [secs_a, secs_b]}
+
+
+def train_small_run(torch, tmp: Path) -> dict:
+    import re
+
+    from repro_torch.examples import train_small
+
+    argv = ["--steps", TRAIN_SMALL_STEPS, "--ckpt-dir", tmp / "train_small"]
+    reset_counts()
+    try:
+        _, text, secs = run_cli(torch, "train_small", train_small.main, argv)
+        rc = 0
+    except SystemExit as e:
+        rc = e.code
+        text = (ROOT / "chiprun_out" / "cli_train_small.log").read_text()
+        secs = None
+    m = re.search(r"loss ([0-9.]+) -> ([0-9.]+)", text)
+    counts = read_counts()
+    require(rc == 0 and m is not None and not any(counts.values()),
+            f"train_small exited {rc}: {text[-400:]}")
+    first, last = float(m.group(1)), float(m.group(2))
+    log(f"[train] python -m repro_torch.examples.train_small --steps "
+        f"{TRAIN_SMALL_STEPS} (qwen3-100m, batch 8x256): exit 0, loss {first:.3f} -> "
+        f"{last:.3f} (mean of the last 20), {secs:.1f} s with 3 checkpoints")
+    return {"rc": rc, "loss_first": first, "loss_last": last, "seconds": secs}
+
+
+# ---------------------------------------------------------------------------
 # phases 4-6: the main paths at full width
 # ---------------------------------------------------------------------------
 def credit(results: dict, path: str, counts: dict, *names: str) -> None:
@@ -3351,7 +3746,8 @@ def main() -> int:
               ("forward", lambda: phase_forward(torch, cfg, params, results)),
               ("cli", lambda: phase_cli(torch, cfg, params, library, results)),
               ("gemma3", lambda: phase_gemma3(torch, library, results)),
-              ("families", lambda: phase_families(torch, library, results))]
+              ("families", lambda: phase_families(torch, library, results)),
+              ("train", lambda: phase_train(torch, results))]
     for name, run in phases:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()

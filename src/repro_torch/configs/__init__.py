@@ -1,8 +1,7 @@
-"""Architecture registry of the port: ``get_config(arch)`` resolves every
-decoder-only architecture of the reference; the encoder–decoder one
-raises until its family is ported.  Each module defines ``CONFIG`` (the
-published configuration) and ``REDUCED`` (a same-family miniature for
-CPU tests)."""
+"""Architecture registry of the port: ``get_config(arch)`` resolves each
+of the reference's ten architectures.  Each module defines ``CONFIG``
+(the published configuration) and ``REDUCED`` (a same-family miniature
+for CPU tests)."""
 
 from __future__ import annotations
 
@@ -20,18 +19,13 @@ _ARCH_MODULES = {
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     "hymba-1.5b": "hymba_1_5b",
     "rwkv6-3b": "rwkv6_3b",
+    "whisper-tiny": "whisper_tiny",
 }
-
-# architectures of the JAX package whose families are not ported yet
-_NOT_PORTED = ("whisper-tiny",)
 
 ARCH_IDS = list(_ARCH_MODULES)
 
 
 def get_config(arch: str, *, reduced: bool = False) -> ModelConfig:
-    if arch in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{arch!r} is not ported to PyTorch yet; ported: {ARCH_IDS}")
     if arch not in _ARCH_MODULES:
         raise KeyError(f"unknown arch {arch!r}; choose from {ARCH_IDS}")
     mod = import_module(f".{_ARCH_MODULES[arch]}", __package__)

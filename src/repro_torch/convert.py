@@ -3,9 +3,12 @@
 Model weights: ``params_from_jax(jax.tree.map(np.asarray, params))`` gives the port the
 weights the reference computes on, so the two are compared on the same
 weights and never on two random inits.  The reference stacks per-layer
-parameters on a leading axis of ``params["layers"]``; the port keeps one
-dict per layer.  Dtypes are kept: a bfloat16 array (numpy's ``ml_dtypes``
+parameters on a leading axis of ``params["layers"]`` (the encoder–decoder
+family: ``"enc_layers"`` and ``"dec_layers"``); the port keeps one dict
+per layer.  Dtypes are kept: a bfloat16 array (numpy's ``ml_dtypes``
 type) becomes a ``torch.bfloat16`` tensor bit for bit.
+:func:`opt_state_from_jax` carries the optimizer's moments and step
+across the same way.
 
 Search objects: :func:`circuit_from_jax`, :func:`template_params_from_jax`
 and :func:`signature_from_jax` carry a netlist, a parameter assignment
@@ -28,10 +31,10 @@ from .library.store import OperatorSignature, circuit_from_dict
 
 
 def _tensor(a, device: torch.device) -> torch.Tensor:
-    a = np.ascontiguousarray(a)
+    a = np.array(a, order="C")        # a contiguous copy; 0-d stays 0-d
     if a.dtype.name == "bfloat16":
-        return torch.from_numpy(a.view(np.uint16).copy()).view(torch.bfloat16).to(device)
-    return torch.from_numpy(a.copy()).to(device)
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
 
 
 def _tree(x, device: torch.device):
@@ -42,18 +45,37 @@ def _tree(x, device: torch.device):
     return _tensor(x, device)
 
 
+# the reference's entries that stack one layer's parameters per row
+STACKED = ("layers", "enc_layers", "dec_layers")
+
+
 def params_from_jax(tree: dict[str, Any], *,
                     device: str | torch.device = "cuda") -> dict[str, Any]:
-    """A numpy copy of a reference LM parameter tree -> port parameters on
+    """A numpy copy of a reference parameter tree -> port parameters on
     ``device``.  Top-level entries (``embed``, ``lm_head``, ``vis_proj``,
-    ...) pass through; the stacked ``layers`` split into one dict a layer,
-    lists (MoE's shared experts) kept as lists."""
+    ...) pass through; each stacked entry (``layers``, or the
+    encoder–decoder's ``enc_layers`` and ``dec_layers``) splits into one
+    dict a layer, lists (MoE's shared experts) kept as lists."""
     dev = resolve_device(device)
-    out = {k: _tree(v, dev) for k, v in tree.items() if k != "layers"}
-    stacked = tree["layers"]
-    n_layers = len(stacked["ln1"])
-    out["layers"] = [_tree(_index(stacked, i), dev) for i in range(n_layers)]
+    out = {}
+    for k, v in tree.items():
+        if k in STACKED:
+            n_layers = len(v["ln1"])
+            out[k] = [_tree(_index(v, i), dev) for i in range(n_layers)]
+        else:
+            out[k] = _tree(v, dev)
     return out
+
+
+def opt_state_from_jax(state: dict[str, Any], *,
+                       device: str | torch.device = "cuda") -> dict[str, Any]:
+    """A numpy copy of the reference's AdamW state (``mu``, ``nu``: float32
+    trees shaped like the parameters; ``step``: int32) -> the port's
+    (:func:`repro_torch.train.optim.init_opt_state`)."""
+    dev = resolve_device(device)
+    return {"mu": params_from_jax(state["mu"], device=dev),
+            "nu": params_from_jax(state["nu"], device=dev),
+            "step": _tensor(np.asarray(state["step"], dtype=np.int32), dev)}
 
 
 def _index(x, i: int):

@@ -5,6 +5,12 @@ tensors and the plain PyTorch version (:mod:`repro_torch.kernels.ref`)
 for CPU tensors.  ``backend="ref"`` forces the plain version; the tests
 and ``chip_smoke.py`` use it to hold a kernel against it.  There is no
 fallback: a kernel that fails to build or launch raises.
+
+The kernels are bound without autograd: their outputs carry no
+``grad_fn``.  So :func:`use_kernel` refuses to launch one on inputs that
+require grad while grad mode is on, where the launch would silently cut
+the gradient; a loss to be differentiated takes ``backend="ref"``
+(:mod:`repro_torch.train.step` does).
 """
 
 from __future__ import annotations
@@ -22,11 +28,28 @@ Backend = Literal["auto", "ref"]
 
 
 def use_kernel(x: torch.Tensor, backend: Backend) -> bool:
+    """Whether a call on ``x`` launches the kernel.  Raises rather than
+    launch on an ``x`` that requires grad while grad mode is on, and never
+    falls back to the plain version."""
     if backend == "ref":
         return False
     if backend != "auto":
         raise ValueError(f"unknown backend {backend!r}; 'auto' or 'ref'")
-    return x.is_cuda
+    if not x.is_cuda:
+        return False
+    refuse_grad(x)
+    return True
+
+
+def refuse_grad(*inputs: torch.Tensor) -> None:
+    """Raise if grad mode is on and an input of a kernel launch requires
+    grad: the kernel's output would cut the gradient."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        raise RuntimeError(
+            "a kernel would launch on inputs that require grad; the kernels "
+            "have no backward, so their outputs would cut the gradient. "
+            "Differentiate the plain route (backend='ref'), or run the "
+            "forward under torch.no_grad()")
 
 
 def template_eval(lits, sel, in_tt, exact_vals, *, backend: Backend = "auto"):
@@ -40,6 +63,7 @@ def template_eval(lits, sel, in_tt, exact_vals, *, backend: Backend = "auto"):
 def approx_matmul(a, b, lut, *, backend: Backend = "auto"):
     """LUT matmul; see :func:`repro_torch.kernels.ref.approx_matmul`."""
     if use_kernel(a, backend):
+        refuse_grad(b)
         return _am.approx_matmul(a, b, lut)
     return ref.approx_matmul(a, b, lut)
 
@@ -48,6 +72,7 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None,
                     backend: Backend = "auto"):
     """Blockwise attention; see :func:`repro_torch.kernels.ref.flash_attention`."""
     if use_kernel(q, backend):
+        refuse_grad(k, v)
         return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                    scale=scale)
     return ref.flash_attention(q, k, v, causal=causal, window=window,

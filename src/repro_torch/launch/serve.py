@@ -314,6 +314,8 @@ def main(argv=None) -> None:
         from ..precision.plans import select_width
         from ..sensitivity.profile import costs_for
 
+        if cfg.family == "audio":
+            raise SystemExit("--library: LUT routing supports LM families only")
         if profile_obj is not None:
             from .analysis import sensitivity_report
 
@@ -470,7 +472,21 @@ def main(argv=None) -> None:
                            prompt_len=args.prompt_len, gen_len=args.gen_len,
                            class_mix=class_mix, prompt_dist=prompt_dist)
 
+    if args.continuous and cfg.family == "audio":
+        raise SystemExit("--continuous: continuous batching serves LM "
+                         "families only (paged decode)")
+
     params = init_model(cfg, args.seed, device=dev)
+    warmup = None
+    if cfg.family == "audio":
+        from ..models.encdec import prefill_cross
+        from ..train.data import DataState, synth_batch
+
+        # the encoder's input for every batch; the warm-up stages each
+        # decoder layer's cross K/V into the engine's cache buffers
+        frames = synth_batch(cfg, args.batch, 1, DataState(args.seed, 0),
+                             device=dev)["frames"]
+        warmup = lambda caches: prefill_cross(cfg, params, frames, caches)  # noqa: E731
 
     common = dict(
         plan=plan, compiled=compiled, exact_area=exact_area,
@@ -582,7 +598,7 @@ def main(argv=None) -> None:
     else:
         engine = ServingEngine(
             cfg, params, batch=args.batch, prompt_len=args.prompt_len,
-            gen_len=args.gen_len, **common)
+            gen_len=args.gen_len, warmup_caches=warmup, **common)
         health = make_health("serve")
         serve_tel = Telemetry()
         mserver = start_metrics([serve_tel], health_obj=health)

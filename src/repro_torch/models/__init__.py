@@ -1,28 +1,36 @@
-"""Model API of the port: init / forward / decode (dense and paged) for
-every decoder-only family.  The encoder–decoder family (``audio``,
-whisper-tiny) is not ported: :mod:`.lm` refuses it, and the paged entry
-points refuse it as the reference's do."""
+"""Model API of the port: init / forward / loss / decode, dispatched by
+family: :mod:`.encdec` for the encoder–decoder family (``audio``,
+whisper-tiny), :mod:`.lm` for every decoder-only one.  The paged entry
+points refuse ``audio``, as the reference's do."""
 
 from __future__ import annotations
 
-from . import lm
+from . import encdec, lm
 from .config import ModelConfig
 
 
 def init_model(cfg: ModelConfig, seed: int = 0, *, device="cuda"):
+    if cfg.family == "audio":
+        return encdec.init_encdec(cfg, seed, device=device)
     return lm.init_lm(cfg, seed, device=device)
 
 
+def loss_fn(cfg: ModelConfig):
+    return encdec.encdec_loss if cfg.family == "audio" else lm.lm_loss
+
+
 def forward_fn(cfg: ModelConfig):
-    return lm.forward_lm
+    return encdec.forward_encdec if cfg.family == "audio" else lm.forward_lm
 
 
 def init_caches(cfg: ModelConfig, batch: int, seq_len: int, *, device="cuda"):
+    if cfg.family == "audio":
+        return encdec.init_encdec_caches(cfg, batch, seq_len, device=device)
     return lm.init_decode_caches(cfg, batch, seq_len, device=device)
 
 
 def decode_fn(cfg: ModelConfig):
-    return lm.decode_step
+    return encdec.decode_step_encdec if cfg.family == "audio" else lm.decode_step
 
 
 def init_paged_caches(cfg: ModelConfig, batch: int, n_pages: int,
@@ -42,5 +50,5 @@ def decode_paged_fn(cfg: ModelConfig):
     return lm.decode_step_paged
 
 
-__all__ = ["ModelConfig", "init_model", "forward_fn", "init_caches",
+__all__ = ["ModelConfig", "init_model", "loss_fn", "forward_fn", "init_caches",
            "decode_fn", "init_paged_caches", "decode_paged_fn"]

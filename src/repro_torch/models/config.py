@@ -2,9 +2,9 @@
 family's sub-config (``moe``, ``mla``, ``ssm``, ``rwkv``, ``encoder``,
 ``vision``) field for field.
 
-The port runs every decoder-only family; ``EncoderConfig`` is here so
-that configs compare field for field with the reference's, and the
-encoder–decoder family (``audio``) is refused by :mod:`repro_torch.models`.
+The port runs every family: the decoder-only ones in
+:mod:`repro_torch.models.lm`, the encoder–decoder one (``audio``) in
+:mod:`repro_torch.models.encdec`.
 """
 
 from __future__ import annotations

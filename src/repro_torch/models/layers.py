@@ -114,14 +114,16 @@ def _masked_softmax_attn(q, k, v, q_pos, k_pos, window, k_valid=None,
     repeats KV up to H heads.  Logits are float32 either way (products of
     bf16 values are exact in float32, as the reference's f32 accumulation);
     with ``f32_math`` off the probabilities round to ``v.dtype`` first.
+    The repeat is a broadcast view: the backward of ``repeat_interleave``
+    is an ``index_add_``, whose atomics make a CUDA gradient vary from run
+    to run, where the broadcast's is a sum over the copies.
     """
     H = q.shape[2]
     out_dtype = q.dtype
     Hkv = k.shape[2]
     if Hkv != H:
-        rep = H // Hkv
-        k = k.repeat_interleave(rep, dim=2)
-        v = v.repeat_interleave(rep, dim=2)
+        k = _repeat_heads(k, H // Hkv)
+        v = _repeat_heads(v, H // Hkv)
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     mask = k_pos[None, :] <= q_pos[:, None]  # causal
@@ -137,6 +139,13 @@ def _masked_softmax_attn(q, k, v, q_pos, k_pos, window, k_valid=None,
         probs = probs.to(v.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
     return out.to(out_dtype)
+
+
+def _repeat_heads(x: torch.Tensor, rep: int) -> torch.Tensor:
+    """(B, S, Hkv, hd) -> (B, S, Hkv * rep, hd), head ``h`` repeated
+    ``rep`` times in place, as ``repeat_interleave(rep, dim=2)``."""
+    B, S, Hkv, hd = x.shape
+    return x[:, :, :, None, :].expand(B, S, Hkv, rep, hd).reshape(B, S, Hkv * rep, hd)
 
 
 def attention_full(
@@ -504,12 +513,17 @@ def mla_attention_decode_paged(
 
 
 # ---------------------------------------------------------------------------
-# dense FFN (SwiGLU)
+# dense FFN (SwiGLU / GELU)
 # ---------------------------------------------------------------------------
-def init_ffn(cfg: ModelConfig, gen: torch.Generator, *,
+def init_ffn(cfg: ModelConfig, gen: torch.Generator, *, gelu: bool = False,
              d_ff: int | None = None) -> Params:
+    """SwiGLU ``{w1, w3, w2}``, or with ``gelu`` the encoder–decoder
+    family's two-matrix ``{w1, w2}``."""
     D, Fd = cfg.d_model, d_ff or cfg.d_ff
     dt = cfg.torch_dtype
+    if gelu:
+        return {"w1": _dense_init(gen, (D, Fd), dt),
+                "w2": _dense_init(gen, (Fd, D), dt)}
     return {
         "w1": _dense_init(gen, (D, Fd), dt),
         "w3": _dense_init(gen, (D, Fd), dt),
@@ -531,10 +545,29 @@ def sigmoid(x: torch.Tensor) -> torch.Tensor:
     return 1.0 / (1.0 + torch.exp(-x))
 
 
+_SQRT_2_OVER_PI = math.sqrt(2 / math.pi)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh approximation
+    ``x * 0.5 * (1 + tanh(sqrt(2/pi) * (x + 0.044715 * x**3)))``, each op
+    rounding to ``x.dtype`` and both constants rounded to it first, as the
+    reference's weak-typed constants are.  ``F.gelu(approximate="tanh")``
+    rounds once in bf16.  ``x**3`` is ``x * (x * x)``, the reference's
+    ``integer_pow``."""
+    c = torch.tensor(_SQRT_2_OVER_PI, dtype=torch.float64).to(x.dtype)
+    k = torch.tensor(0.044715, dtype=torch.float64).to(x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * (x * x))))))
+
+
 def ffn(cfg: ModelConfig, p: Params, x: torch.Tensor, lut=None, *,
         backend: ops.Backend = "auto") -> torch.Tensor:
-    h = (silu(linear(x, p["w1"], lut, backend=backend))
-         * linear(x, p["w3"], lut, backend=backend))
+    """SwiGLU, or GELU when the dict has no ``w3``."""
+    if "w3" in p:
+        h = (silu(linear(x, p["w1"], lut, backend=backend))
+             * linear(x, p["w3"], lut, backend=backend))
+    else:
+        h = gelu(linear(x, p["w1"], lut, backend=backend))
     return linear(h, p["w2"], lut, backend=backend)
 
 

@@ -1,6 +1,7 @@
 """Decoder-only language model of every family but the encoder–decoder
 one (dense, MoE, MLA, VLM, hybrid attention + SSM, RWKV6): init,
-teacher-forced forward and one-token decode, fixed-batch and paged.
+teacher-forced forward and its loss, and one-token decode, fixed-batch
+and paged.  The encoder–decoder family is :mod:`.encdec`.
 
 Parameters are plain dicts of tensors with one dict per layer in
 ``params["layers"]`` (the reference stacks them on a leading axis for its
@@ -10,10 +11,12 @@ The layer scan of the reference is a Python loop here.
 
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from ..device import resolve_device
 from ..kernels import ops
@@ -26,8 +29,9 @@ Params = dict[str, Any]
 
 def _check_family(cfg: ModelConfig) -> None:
     if cfg.family == "audio":
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} is not ported yet")
+        raise ValueError(
+            f"{cfg.name}: family {cfg.family!r} is the encoder–decoder one; "
+            "see repro_torch.models.encdec")
 
 
 def window_schedule(cfg: ModelConfig) -> np.ndarray | int | None:
@@ -176,6 +180,38 @@ def check_lut_depth(cfg: ModelConfig, luts, *, backend: ops.Backend = "auto") ->
                 f"{spec.bits}; the kernel route refuses it")
 
 
+# aten ops whose outputs "dots" keeps: products without batch dimensions
+# (a (..., K) x (K, N) matmul folds its leading axes into one mm), as
+# jax.checkpoint_policies.dots_with_no_batch_dims_saveable keeps; the
+# attention's batched einsums (bmm) are recomputed
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_layer(fn, remat: str):
+    """``fn`` as a layer of the forward under a rematerialisation policy:
+    ``"none"`` keeps every activation for the backward; ``"full"``
+    recomputes the layer in the backward (``torch.utils.checkpoint``),
+    as ``jax.checkpoint`` with ``nothing_saveable``; ``"dots"`` keeps the
+    matmul outputs without batch dimensions and recomputes the rest.  No
+    policy changes a value: the recomputation runs the same ops on the
+    same inputs."""
+    if remat == "none":
+        return fn
+    if remat == "full":
+        return functools.partial(_ckpt.checkpoint, fn, use_reentrant=False)
+    if remat == "dots":
+        return functools.partial(
+            _ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                _ckpt.create_selective_checkpoint_contexts, _dots_policy))
+    raise ValueError(f"unknown remat {remat!r}; 'none', 'full' or 'dots'")
+
+
 def forward_lm(
     cfg: ModelConfig,
     params: Params,
@@ -183,6 +219,7 @@ def forward_lm(
     *,
     lut=None,
     backend: ops.Backend = "auto",
+    remat: str = "none",
     device: str | torch.device = "cuda",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Teacher-forced forward.  Returns (logits (B, S_total, V) float32,
@@ -197,8 +234,11 @@ def forward_lm(
     stack; side = 16 (W4A4) or 256 (W8A8).  A table bound for the kernel
     is checked once per call to hold non-negative entries (a W8A8 one
     through its tile, and to be composed).
+    ``remat``: ``"none"``, ``"full"`` or ``"dots"``, applied to each layer
+    (:func:`remat_layer`).
     """
     _check_family(cfg)
+    block = remat_layer(_block_full, remat)
     dev = resolve_device(device)
     check_device(params, dev)
     tokens = torch.as_tensor(batch["tokens"], device=dev).long()
@@ -221,10 +261,30 @@ def forward_lm(
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     for i, lp in enumerate(params["layers"]):
         lut_i = lut_[i] if per_layer_lut else lut_
-        x, aux_i = _block_full(cfg, lp, x, layer_window(win, i), lut_i, backend)
+        x, aux_i = block(cfg, lp, x, layer_window(win, i), lut_i, backend)
         if aux_i is not None:
             aux = aux + aux_i
     return _head(cfg, params, x), aux
+
+
+def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy of ``logits[:, t]`` (B, S, V) against
+    ``tokens[:, t + 1]``."""
+    logp = torch.log_softmax(logits[:, :-1], dim=-1)
+    tgt = tokens[:, 1:].long()
+    return -logp.gather(-1, tgt[..., None])[..., 0].mean()
+
+
+def lm_loss(cfg: ModelConfig, params: Params, batch: dict, *, lut=None,
+            backend: ops.Backend = "auto", remat: str = "none",
+            device: str | torch.device = "cuda") -> torch.Tensor:
+    """Next-token cross-entropy over the text positions (a VLM's patch
+    prefix is left out), plus the MoE load-balancing loss."""
+    logits, aux = forward_lm(cfg, params, batch, lut=lut, backend=backend,
+                             remat=remat, device=device)
+    n_prefix = cfg.vision.n_patches if cfg.vision is not None else 0
+    tokens = torch.as_tensor(batch["tokens"], device=logits.device)
+    return next_token_nll(logits[:, n_prefix:], tokens) + aux
 
 
 # ---------------------------------------------------------------------------

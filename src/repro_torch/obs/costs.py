@@ -51,23 +51,20 @@ def mlp_macs_per_layer(cfg) -> list[int]:
     never earn a dividend.
 
     Raises :class:`ValueError` for RWKV families — their channel mix
-    bypasses the LUT path entirely, so there is nothing to account — and
-    for the encoder–decoder family, which the port does not run yet; the
+    bypasses the LUT path entirely, so there is nothing to account; the
     engine then serves with the cost plane off.
     """
     if getattr(cfg, "rwkv", None) is not None:
         raise ValueError(
             f"{cfg.name}: RWKV channel mix does not route through the LUT "
             "path; no approx MACs to account")
-    if getattr(cfg, "encoder", None) is not None:
-        raise ValueError(
-            f"{cfg.name}: family {cfg.family!r} is not ported; no approx "
-            "MACs to account")
     d = int(cfg.d_model)
     if getattr(cfg, "moe", None) is not None:
         # only the always-on shared experts ride ffn(..., lut); the
         # sorted top-k dispatch runs exact batched matmuls
         per = int(cfg.moe.n_shared) * 3 * d * int(cfg.moe.d_ff_expert)
+    elif getattr(cfg, "encoder", None) is not None:
+        per = 2 * d * int(cfg.d_ff)        # GELU FFN: w1, w2
     else:
         per = 3 * d * int(cfg.d_ff)        # gated FFN: w1, w3, w2
     return [per] * int(cfg.n_layers)

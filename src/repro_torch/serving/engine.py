@@ -332,12 +332,19 @@ class ServingEngine:
     the same way.  A measured ``sens_profile``
     (:class:`~repro_torch.sensitivity.profile.SensitivityProfile`) prices
     the frontiers a refresh adopts (:func:`~repro_torch.sensitivity.profile.costs_for`).
+    ``warmup_caches(caches)`` stages state the decode step reads into the
+    step's own cache buffers, in place, at the start of every batch,
+    after they are zeroed (the encoder–decoder family passes
+    :func:`~repro_torch.models.encdec.prefill_cross`, which writes each
+    layer's cross K/V where the captured step reads it); it returns the
+    buffers it was given.
     """
 
     def __init__(self, cfg, params, *, batch: int, prompt_len: int,
                  gen_len: int, plan: LayerPlan | None = None, compiled=None,
                  exact_area: float | None = None, sensitivities=None,
                  width_map=None, sens_profile=None, luts=None,
+                 warmup_caches: Callable | None = None,
                  backend: ops.Backend = "auto",
                  device: str | torch.device = "cuda") -> None:
         self.cfg = cfg
@@ -349,6 +356,7 @@ class ServingEngine:
         self.gen_len = int(gen_len)
         self.total = self.prompt_len + self.gen_len
         self.backend = backend
+        self._warmup = warmup_caches
         self.last_tokens: np.ndarray | None = None   # (n_requests, gen_len)
         self._static: StaticStep | None = None
         self._trace_count = 0
@@ -669,6 +677,9 @@ class ServingEngine:
         prompts = torch.from_numpy(prompts_np).to(self.device)
         step = self.static_step
         step.reset()
+        if self._warmup is not None and self._warmup(step.caches) is not step.caches:
+            raise ValueError("warmup_caches must write the step's cache "
+                             "buffers in place and return them")
         if src is not None:
             step.load(src)
         shadow = shadow and self._adaptive
@@ -986,6 +997,8 @@ class ContinuousServingEngine(ServingEngine):
     def __init__(self, cfg, params, *, max_slots: int, prompt_len: int,
                  gen_len: int, page_size: int = 8, n_pages: int | None = None,
                  steps_per_tick: int | None = None, **kw) -> None:
+        if kw.pop("warmup_caches", None) is not None:
+            raise ValueError("continuous batching serves LM families only")
         self.max_slots = int(max_slots)
         self.page_size = int(page_size)
         total = int(prompt_len) + int(gen_len)

@@ -114,12 +114,12 @@ def test_config_equals_reference(arch, reduced):
 def test_registry_resolves_every_decoder_only_architecture():
     from repro.configs import ARCH_IDS as JAX_IDS
 
-    assert sorted(ARCH_IDS) == sorted(a for a in JAX_IDS if a != "whisper-tiny")
-    assert len(ARCH_IDS) == 9
+    assert sorted(ARCH_IDS) == sorted(JAX_IDS)
+    assert len(ARCH_IDS) == 10
     for arch in ARCH_IDS:
         assert get_config(arch).name == arch
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("whisper-tiny")
+    # the encoder–decoder one resolves too, to the reference's config
+    assert _fields(get_config("whisper-tiny")) == _fields(jax_config("whisper-tiny"))
     # the full-width sizes the card's phases rest on
     assert round(get_config("deepseek-v2-lite-16b").n_params() * 2 / 2**30, 1) == 30.2
     assert round(get_config("mixtral-8x7b").n_params() * 2 / 2**30, 1) == 87.0
@@ -292,6 +292,7 @@ def test_w8a8_past_max_k_is_refused_before_any_launch(monkeypatch):
     assert depths["command-r-plus-104b"] == 33792 > get_width(8).max_k == 29140
     assert depths["rwkv6-3b"] == 0 and depths["mixtral-8x7b"] == 0
     assert depths["deepseek-v2-lite-16b"] == 2048
+    assert depths["whisper-tiny"] == 1536            # its GELU FFN's w2
     ct = get_config("command-r-plus-104b")
     lm.check_lut_depth(ct, w8)                       # the plain route: no check
     monkeypatch.setattr(ops, "use_kernel", lambda x, backend: backend == "auto")

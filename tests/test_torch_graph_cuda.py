@@ -77,17 +77,19 @@ def _engine(cuda, library, bits):
     return eng, ladder, reqs
 
 
-def _eager(eng, reqs, stack):
+def _eager(eng, reqs, stack, caches=None):
     """The batch through ``decode_fn`` called directly, position by
-    position, on the kernel route: (tokens, last logits)."""
+    position, on the kernel route: (tokens, last logits).  ``caches``:
+    staged ones to start from (zeroed ones by default)."""
     cfg, dev = eng.cfg, eng.device
     step = decode_fn(cfg)
-    caches = init_caches(cfg, eng.batch, eng.total, device=dev)
+    if caches is None:
+        caches = init_caches(cfg, eng.batch, eng.total, device=dev)
     prompts = np.zeros((eng.batch, PROMPT), np.int32)
     for i, r in enumerate(reqs):
         prompts[i, :len(r.tokens)] = r.tokens
     prompts = torch.from_numpy(prompts).to(dev)
-    luts = torch.as_tensor(stack, device=dev)
+    luts = None if stack is None else torch.as_tensor(stack, device=dev)
     for t in range(PROMPT):
         logits, _ = step(cfg, eng.params, caches, prompts[:, t:t + 1], t, luts=luts)
     generated = []
@@ -377,3 +379,72 @@ def test_command_r_w8a8_is_refused_before_any_launch(cuda):
         ServingEngine(cfg, params, batch=1, prompt_len=2, gen_len=2, luts=stack,
                       device=cuda)
     assert am.approx_matmul_w8.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# training's gradient guard and the encoder–decoder family's warm-up
+# ---------------------------------------------------------------------------
+@pytest.mark.cuda
+def test_a_loss_on_parameters_that_require_grad_refuses_the_kernels(cuda):
+    """``lm_loss(..., backend="auto")`` on card parameters that require
+    grad raises before any launch (the kernels have no backward, so their
+    outputs would cut the gradient); the plain route differentiates, and
+    a forward under ``no_grad`` or on parameters that do not require grad
+    still launches flash."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import lm
+    from repro_torch.train import DataState, synth_batch
+
+    cfg = get_config("stablelm-1.6b", reduced=True)
+    params = init_model(cfg, seed=0, device=cuda)
+    batch = synth_batch(cfg, 2, 16, DataState(0, 0), device=cuda)
+    live = {k: v for k, v in params.items()}
+    live["embed"] = params["embed"].detach().requires_grad_(True)
+    n = fa.flash_attention.launches
+    with pytest.raises(RuntimeError, match="require grad"):
+        lm.lm_loss(cfg, live, batch, backend="auto", device=cuda)
+    assert fa.flash_attention.launches == n
+    loss = lm.lm_loss(cfg, live, batch, backend="ref", device=cuda)
+    (g,) = torch.autograd.grad(loss, [live["embed"]])
+    assert torch.isfinite(g).all() and float(g.abs().sum()) > 0
+    with torch.no_grad():
+        lm.lm_loss(cfg, live, batch, backend="auto", device=cuda)
+    lm.lm_loss(cfg, params, batch, backend="auto", device=cuda)
+    assert fa.flash_attention.launches == n + 2 * cfg.n_layers
+
+
+@pytest.mark.cuda
+def test_whisper_warmup_stages_cross_kv_under_the_captured_graph(cuda):
+    """Reduced whisper in the fixed engine: the warm-up writes each layer's
+    cross K/V in place into the buffers the captured step reads, after
+    the reset that zeroes them, for every batch; the graph is captured
+    once, and a batch's tokens and final logits equal the eager
+    ``decode_step_encdec`` route's bit for bit, for two sets of frames."""
+    from repro_torch.models import encdec
+    from repro_torch.train import DataState, synth_batch
+
+    cfg = get_config("whisper-tiny", reduced=True)
+    params = init_model(cfg, seed=0, device=cuda)
+    frames = {"f": synth_batch(cfg, 2, 1, DataState(0, 0), device=cuda)["frames"]}
+    eng = ServingEngine(cfg, params, batch=2, prompt_len=PROMPT, gen_len=GEN,
+                        device=cuda, warmup_caches=lambda c: encdec.prefill_cross(
+                            cfg, params, frames["f"], c))
+    reqs = synth_requests(steady(1, 2, prompt_len=PROMPT, gen_len=GEN),
+                          cfg.vocab_size, 0)[0]
+    addrs = None
+    for seed in (0, 1):
+        frames["f"] = synth_batch(cfg, 2, 1, DataState(seed, 0), device=cuda)["frames"]
+        eng.run_batch(reqs)
+        st = eng.static_step
+        now = [c[k].data_ptr() for c in st.caches for k in ("k", "v", "xk", "xv")]
+        assert addrs is None or now == addrs
+        addrs = now
+        want = encdec.prefill_cross(cfg, params, frames["f"],
+                                    encdec.init_encdec_caches(cfg, 2, eng.total,
+                                                              device=cuda))
+        assert all(torch.equal(c["xk"], w["xk"]) and torch.equal(c["xv"], w["xv"])
+                   for c, w in zip(st.caches, want))
+        tokens, logits = _eager(eng, reqs, None, caches=want)
+        assert np.array_equal(eng.last_tokens, tokens)
+        assert torch.equal(st.logits, logits)
+    assert eng.trace_count == 1

@@ -27,11 +27,16 @@ def test_port_imports_no_jax_and_no_reference():
                          capture_output=True, text=True,
                          env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""})
     mods = set(out.stdout.split())
-    assert len(mods) >= 83  # every module of the port
-    # the configs of every decoder-only family
+    assert len(mods) >= 91  # every module of the port
+    # the configs of every family
     assert {f"repro_torch.configs.{m}" for m in (
         "command_r_plus_104b", "internvl2_1b", "mixtral_8x7b",
-        "deepseek_v2_lite_16b", "hymba_1_5b", "rwkv6_3b")} <= mods
+        "deepseek_v2_lite_16b", "hymba_1_5b", "rwkv6_3b", "whisper_tiny")} <= mods
+    # the encoder–decoder family and training
+    assert {"repro_torch.models.encdec", "repro_torch.train",
+            "repro_torch.train.data", "repro_torch.train.optim",
+            "repro_torch.train.step", "repro_torch.train.checkpoint",
+            "repro_torch.launch.train", "repro_torch.examples.train_small"} <= mods
 
 
 def test_port_sources_name_no_jax_import():
@@ -172,3 +177,27 @@ def test_fleet_fills_a_library_without_jax(tmp_path):
     again = subprocess.run(argv, cwd=ROOT, env=env, capture_output=True, text=True)
     assert again.returncode == 0, again.stderr[-2000:]
     assert "jobs: 0 ok, 9 resumed/skipped, 0 failed; 0 operator(s) added" in again.stdout
+
+
+def test_training_modules_load_and_train_without_jax(tmp_path):
+    """The training stack (data, optimizer, step, checkpoints, the
+    launcher) and the encoder–decoder family train, checkpoint and resume
+    on the CPU with neither jax nor repro in the process."""
+    code = (
+        "import sys\n"
+        "from repro_torch.launch import train\n"
+        "from repro_torch.models import encdec\n"
+        f"d = {str(tmp_path)!r}\n"
+        "argv = ['--reduced', '--arch', 'whisper-tiny', '--device', 'cpu', '--batch', '2',"
+        " '--seq', '8', '--log-every', '2', '--ckpt-dir', d]\n"
+        "out = train.main(argv + ['--steps', '2'])\n"
+        "again = train.main(argv + ['--steps', '3'])\n"
+        "assert again['start'] == 2 and len(again['losses']) == 1\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True,
+                         env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""})
+    assert "resumed from step 2" in out.stdout and out.stdout.strip().endswith("ok")

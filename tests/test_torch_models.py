@@ -189,8 +189,8 @@ def test_params_from_jax_keeps_dtypes_and_splits_layers():
 
 
 def test_unported_architectures_raise():
-    with pytest.raises(NotImplementedError, match="not ported"):
-        get_config("whisper-tiny", reduced=True)
+    # every architecture of the reference is ported; only an unknown one raises
+    assert get_config("whisper-tiny", reduced=True).name == "whisper-tiny-reduced"
     with pytest.raises(KeyError):
         get_config("no-such-arch")
     assert get_config("gemma3-1b", reduced=True).name == "gemma3-1b-reduced"

@@ -27,6 +27,7 @@ from repro.configs import get_config as jax_config  # noqa: E402
 from repro.core.arith import benchmark  # noqa: E402
 from repro.library.compile import load_mul_frontier as jax_load  # noqa: E402
 from repro.models import init_model as jax_init  # noqa: E402
+from repro.models.config import EncoderConfig as JaxEncoderConfig  # noqa: E402
 from repro.obs import costs as jax_costs  # noqa: E402
 from repro.obs import provenance as jax_prov  # noqa: E402
 from repro.obs import requests as jax_requests  # noqa: E402
@@ -298,9 +299,12 @@ def test_mlp_macs_per_layer():
         assert m == [3 * ct.d_model * ct.d_ff] * ct.n_layers
     with pytest.raises(ValueError, match="RWKV"):
         port_costs.mlp_macs_per_layer(get_config("rwkv6-3b", reduced=True))
-    with pytest.raises(ValueError, match="not ported"):
-        port_costs.mlp_macs_per_layer(dataclasses.replace(
-            ct, family="audio", encoder=EncoderConfig()))
+    # the audio config is priced as the reference prices it: a GELU FFN
+    audio = dataclasses.replace(ct, family="audio", encoder=EncoderConfig())
+    m = port_costs.mlp_macs_per_layer(audio)
+    assert m == [2 * ct.d_model * ct.d_ff] * ct.n_layers
+    assert m == jax_costs.mlp_macs_per_layer(dataclasses.replace(
+        cj, family="audio", encoder=JaxEncoderConfig()))
 
 
 def test_lifecycle_event_overhead_is_negligible_when_off():
