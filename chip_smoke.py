@@ -109,7 +109,22 @@ failing the run on any mismatch:
    step bit-equal with and without deterministic algorithms; resume bit
    for bit through the launcher for whisper-tiny and reduced mixtral; and
    ``python -m repro_torch.examples.train_small`` exiting 0;
-11. print the kernels line (launches on the main path, deviations, times,
+11. the roofline and the dry-run (``[roofline]`` and ``[dryrun]`` lines):
+   ``analysis.analyze`` under ``parallel.activate(make_smoke_mesh())`` on
+   a world of one, with the parameters (and caches, optimizer state) as
+   replicated DTensors, over (a) the W4A4 decode step at 8 rows, (b)
+   ``forward_lm`` at B=2 S=512 through flash and (c) stablelm-1.6b's train
+   step at 8x128: counted FLOPs and bytes a device, t*, the modelled step,
+   the measured ms of the plain step and the share t*/measured; the
+   counted FLOPs equal to an independent count from the config (and the
+   kernel route's to the plain route's), the DTensor logits (and loss)
+   bit-equal to the plain step's, both kernels launched on local shards;
+   then ``python -m
+   repro_torch.launch.dryrun`` in five processes started together and
+   seeing no card, qwen3-4b at full width on a fake world (train, prefill
+   and decode on 16x16, long_500k's skip record, the 2x16x16 train step),
+   each exiting 0;
+12. print the kernels line (launches on the main path, deviations, times,
    bounds), where a decode step's time goes, the card's name and power
    limit, and a last line of JSON.
 
@@ -3707,6 +3722,278 @@ def phase_forward(torch, cfg, params, results: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the dry-run and the roofline
+# ---------------------------------------------------------------------------
+DRYRUN_CELLS = ([["--arch", "qwen3-4b", "--shape", s]
+                 for s in ("train_4k", "prefill_32k", "decode_32k", "long_500k")]
+                + [["--arch", "qwen3-4b", "--shape", "train_4k", "--multi-pod",
+                    "--no-roofline"]])
+DRYRUN_TIMEOUT_S = 400
+CARD_BYTES = 80e9          # the H100's HBM
+
+
+def phase_dryrun(results: dict) -> None:
+    """``python -m repro_torch.launch.dryrun`` for each cell of
+    ``DRYRUN_CELLS`` as subprocesses, all started together and each
+    checked for exit code 0: qwen3-4b at full width on a fake 16x16 world
+    for train, prefill and decode, ``long_500k``'s skip record, and the
+    2x16x16 train step without the roofline.  The subprocesses see no
+    card (``CUDA_VISIBLE_DEVICES`` empty): the dry-run runs on meta
+    tensors by design."""
+    import os
+
+    out_dir = ROOT / "build" / "dryrun"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": ""}
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *cell, "--out", str(out_dir)],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for cell in DRYRUN_CELLS]
+    try:
+        outs = [p.communicate(timeout=DRYRUN_TIMEOUT_S) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = time.perf_counter() - t0
+    cells = []
+    for cell, p, (stdout, stderr) in zip(DRYRUN_CELLS, procs, outs):
+        require(p.returncode == 0, f"dryrun {' '.join(cell)} exited {p.returncode}: "
+                                   f"{stdout[-400:]} {stderr[-800:]}")
+        mesh = "2x16x16" if "--multi-pod" in cell else "16x16"
+        rec = json.loads((out_dir / f"{cell[1]}__{cell[3]}__{mesh}.json").read_text())
+        cells.append(rec)
+        if rec["status"] == "skipped":
+            require(cell[3] == "long_500k" and rec["reason"].startswith("long_500k skipped"),
+                    f"dryrun {' '.join(cell)}: unexpected skip {rec}")
+            log(f"[dryrun] {rec['arch']} {rec['shape']} {mesh}: skipped "
+                f"({rec['reason']})")
+            continue
+        require(rec["status"] == "ok", f"dryrun {' '.join(cell)}: {rec}")
+        arg = rec["memory_analysis"]["argument_size_in_bytes"]
+        log(f"[dryrun] {rec['arch']} {rec['shape']} {mesh}: ok, {rec['chips']} chips; "
+            f"per device {rec['hlo_flops']:.4g} FLOP, {rec['hlo_bytes']:.4g} B, "
+            f"{rec['wire_bytes']:.4g} wire B, collectives {rec['collectives']}; "
+            f"bottleneck {rec['bottleneck']}, roofline_fraction "
+            f"{rec['roofline_fraction']:.4f} (modelled from counts and data-sheet "
+            f"peaks); arguments {arg / 1e9:.2f} GB a device of the card's "
+            f"{CARD_BYTES / 1e9:.0f} GB; {rec['wall_s']:.1f} s on the host")
+    log(f"[dryrun] {len(cells)} cells in {secs:.1f} s, as {len(procs)} processes "
+        f"started together")
+    results["dryrun"] = {"seconds": secs, "cells": cells}
+
+
+ROOFLINE_DECODE = {"rows": 8, "max_len": 512, "pos": 256}
+ROOFLINE_FORWARD = (2, 512)
+ROOFLINE_TRAIN = (8, 128)
+
+
+def median_ms(torch, fn, calls: int, warmup: int = 1) -> float:
+    """The median of ``calls`` calls, each timed by CUDA events."""
+    import numpy as np
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(calls):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        fn()
+        ev[1].record()
+        ev[1].synchronize()
+        times.append(ev[0].elapsed_time(ev[1]))
+    return float(np.median(times))
+
+
+def roofline_line(name: str, roof, ref_flops, want: int, ms: float, smi: str) -> dict:
+    """Print one step's counted roofline beside its measured time."""
+    share = roof.t_star * 1e3 / ms
+    log(f"[roofline] {name}: counted {roof.hlo_flops:.6g} FLOP (independent count "
+        f"{want:.6g}) and {roof.hlo_bytes:.4g} B a device"
+        + (f" (plain route {ref_flops:.6g} FLOP)" if ref_flops is not None else "")
+        + f"; model_flops {roof.model_flops:.4g}, useful_flops_ratio "
+        f"{roof.useful_flops_ratio:.4f}; t* {roof.t_star * 1e3:.4f} ms, modelled step "
+        f"{roof.t_step * 1e3:.4f} ms ({roof.bottleneck}), both from counts and "
+        f"data-sheet peaks; measured {ms:.3f} ms (CUDA events, median), measured "
+        f"share t*/measured {share:.4f}; {smi}")
+    return {**roof.as_dict(), "t_step": roof.t_step, "measured_ms": ms,
+            "measured_share": share, "plain_route_flops": ref_flops,
+            "independent_flops": want}
+
+
+def product_weights(cfg) -> int:
+    """The weights of every product a token runs through, from the config
+    alone: each layer's q, k, v and output projections and its three
+    SwiGLU matrices, and the vocabulary head."""
+    D, H, Hkv, hd, F = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.hd, cfg.d_ff
+    return cfg.n_layers * (D * H * hd + 2 * D * Hkv * hd + H * hd * D + 3 * D * F) \
+        + cfg.vocab_size * D
+
+
+def phase_roofline(torch, cfg, params, results: dict) -> None:
+    """``analysis.analyze`` on the card under ``parallel.activate
+    (make_smoke_mesh())``, a world of one, with the parameters, caches and
+    optimizer state as replicated DTensors, so that the model's ``shard``
+    and ``fsdp_gather`` sites and the kernels' local-shard routes run:
+    (a) the qwen3-4b W4A4 decode step at 8 rows, (b) ``forward_lm`` at B=2
+    S=512 in bf16 through flash, (c) stablelm-1.6b's train step at 8x128.
+    Each with its counted FLOPs and bytes, t*, the modelled step and the
+    measured ms of the plain step.  The counted FLOPs equal an independent
+    count from the config: 2 a product weight a token (6 in a train step),
+    plus attention at 4 hd a (query, key) pair the causal mask leaves in a
+    forward, a cache slot in decode, and the plain route's backward over
+    all S^2 pairs; (a) and (b) count the same on the kernel route as on
+    ``backend="ref"``; the DTensor logits of (a) and (b) and the loss of (c)
+    equal the plain step's bit for bit; the W4A4 and flash kernels launch
+    here."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch import parallel
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch import analysis, mesh
+    from repro_torch.models import decode_fn, forward_fn, init_caches, init_model, loss_fn
+    from repro_torch.train import (DataState, OptimizerConfig, init_opt_state,
+                                   make_train_step, synth_batch)
+    from repro_torch.train.optim import tree_map
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    out: dict = {}
+    reset_counts()
+    with mesh.local_world("cuda"):
+        smoke = mesh.make_smoke_mesh()
+
+        def rep(t):
+            """``t`` as a replicated DTensor on the smoke mesh (its storage)."""
+            return DTensor.from_local(t, smoke, [Replicate(), Replicate()],
+                                      run_check=False)
+
+        def on_mesh(fn, *args):
+            with parallel.activate(smoke), implicit_replication():
+                return fn(*args)
+
+        def roof(name, fn, *args, **kw):
+            return on_mesh(lambda: analysis.analyze(
+                fn, *args, arch=name, shape=kw.pop("shape"), mesh_name="1x1", chips=1,
+                **kw))
+
+        def pairs(S: int) -> int:
+            return S * (S + 1) // 2
+
+        L, H, hd = cfg.n_layers, cfg.n_heads, cfg.hd
+        params_d = tree_map(rep, params)
+
+        # (a) the W4A4 decode step at 8 rows
+        rows, max_len, pos = (ROOFLINE_DECODE[k] for k in ("rows", "max_len", "pos"))
+        cfg4 = cfg.with_approx_mlp(4)
+        w4 = torch.as_tensor(stacks(cfg.n_layers)[0], device="cuda")
+        ops.check_luts(w4)
+        caches = init_caches(cfg4, rows, max_len, device="cuda")
+        caches_d = [tree_map(rep, c) for c in caches]
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        tokens = torch.randint(0, cfg.vocab_size, (rows, 1), generator=gen, device="cuda")
+        step = decode_fn(cfg4)
+
+        def decode(backend="auto", p=params, c=caches):
+            return step(cfg4, p, c, tokens, pos, luts=w4, backend=backend)[0]
+
+        cache_bytes = sum(t.numel() * t.element_size() for c in caches for t in c.values())
+        kw = dict(shape=f"decode {rows} rows", model_flops=analysis.model_flops_decode(
+            cfg.n_active_params(), rows),
+            model_bytes=2.0 * cfg.n_active_params() + cache_bytes)
+        want = 2 * rows * product_weights(cfg) + L * 4 * hd * rows * H * max_len
+        ra = roof(cfg.name, lambda: decode(p=params_d, c=caches_d), **kw)
+        local = {"approx_matmul_w4": read_counts()["approx_matmul_w4"]}
+        require(local["approx_matmul_w4"] > 0, "(a): no W4A4 launch on local shards")
+        ra_ref = roof(cfg.name, lambda: decode("ref", params_d, caches_d), **kw)
+        plain = decode()
+        meshed = on_mesh(lambda: decode(p=params_d, c=caches_d).to_local())
+        require(ra.hlo_flops == ra_ref.hlo_flops == want,
+                f"decode: kernel route {ra.hlo_flops} FLOP, plain {ra_ref.hlo_flops}, "
+                f"independent count {want}")
+        require(torch.equal(plain, meshed), "decode logits differ under the smoke mesh")
+        out["decode_w4a4"] = roofline_line(
+            f"(a) {cfg.name} W4A4 decode step at {rows} rows (cache {max_len})", ra,
+            ra_ref.hlo_flops, want, median_ms(torch, decode, 10), smi)
+        del caches_d
+
+        # (b) forward_lm through flash, exact MLP
+        B, S = ROOFLINE_FORWARD
+        toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device="cuda")
+        fwd = forward_fn(cfg)
+
+        def forward(backend="auto", p=params):
+            return fwd(cfg, p, {"tokens": toks}, backend=backend, device="cuda")[0]
+
+        kw = dict(shape=f"forward B={B} S={S}", model_flops=analysis.model_flops_decode(
+            cfg.n_active_params(), B * S), model_bytes=2.0 * cfg.n_active_params())
+        want = 2 * B * S * product_weights(cfg) + L * 4 * hd * B * H * pairs(S)
+        with torch.no_grad():
+            rb = roof(cfg.name, lambda: forward(p=params_d), **kw)
+            local["flash_attention"] = read_counts()["flash_attention"]
+            require(local["flash_attention"] > 0, "(b): no flash launch on local shards")
+            rb_ref = roof(cfg.name, lambda: forward("ref", params_d), **kw)
+            plain = forward()
+            meshed = on_mesh(lambda: forward(p=params_d).to_local())
+            require(rb.hlo_flops == rb_ref.hlo_flops == want,
+                    f"forward: kernel route {rb.hlo_flops} FLOP, plain {rb_ref.hlo_flops}, "
+                    f"independent count {want}")
+            require(torch.equal(plain, meshed), "forward logits differ under the smoke mesh")
+            out["forward"] = roofline_line(
+                f"(b) {cfg.name} forward_lm B={B} S={S} bf16 through flash", rb,
+                rb_ref.hlo_flops, want, median_ms(torch, forward, 5), smi)
+        del plain, meshed, params_d
+        counts = read_counts()
+        credit(results, "roofline", counts, "approx_matmul_w4", "flash_attention")
+        require(counts["approx_matmul_w4"] > 0 and counts["flash_attention"] > 0,
+                f"[roofline] launches {counts}")
+
+        # (c) stablelm-1.6b's train step at 8x128
+        tcfg = get_config("stablelm-1.6b")
+        tparams = init_model(tcfg, seed=0, device="cuda")
+        opt = init_opt_state(tparams)
+        B, S = ROOFLINE_TRAIN
+        batch = synth_batch(tcfg, B, S, DataState(0, 0), device="cuda")
+        train = make_train_step(tcfg, OptimizerConfig(), remat="none")
+        with torch.no_grad():
+            loss0 = loss_fn(tcfg)(tcfg, tparams, batch, backend="ref", device="cuda")
+            loss1 = on_mesh(lambda: loss_fn(tcfg)(
+                tcfg, tree_map(rep, tparams), batch, backend="ref",
+                device="cuda").to_local())
+        require(torch.equal(loss0, loss1), "train loss differs under the smoke mesh")
+        # the DTensor step updates copies, so the plain step below is timed
+        # on the parameters it started from
+        Lt, Ht, hdt = tcfg.n_layers, tcfg.n_heads, tcfg.hd
+        want = (6 * B * S * product_weights(tcfg)
+                + Lt * hdt * B * Ht * (4 * pairs(S) + 8 * S * S))
+        rc = roof(tcfg.name, train, tree_map(lambda t: rep(t.clone()), tparams),
+                  tree_map(lambda t: rep(t.clone()), opt), batch, shape=f"train {B}x{S}",
+                  model_flops=analysis.model_flops_train(tcfg.n_active_params(), B * S),
+                  model_bytes=30.0 * tcfg.n_params())
+        require(rc.hlo_flops == want,
+                f"train: counted {rc.hlo_flops} FLOP, independent count {want}")
+        out["train"] = roofline_line(
+            f"(c) {tcfg.name} train step {B}x{S}", rc, None, want,
+            median_ms(torch, lambda: train(tparams, opt, batch), 5), smi)
+        del tparams, opt
+    out["launches"] = counts
+    out["launches_on_local_shards"] = local
+    out["nvidia_smi"] = smi
+    log(f"[roofline] launches in this phase: W4A4 {counts['approx_matmul_w4']}, "
+        f"flash {counts['flash_attention']}; of them on local shards of replicated "
+        f"DTensors, in the counted runs: W4A4 {local['approx_matmul_w4']}, flash "
+        f"{local['flash_attention']}; "
+        f"counted FLOPs of (a), (b) and (c) equal to the independent counts; logits of "
+        f"(a) and (b) and the loss of (c) bit-equal under the smoke mesh")
+    results["roofline"] = out
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     import torch
 
@@ -3747,7 +4034,9 @@ def main() -> int:
               ("cli", lambda: phase_cli(torch, cfg, params, library, results)),
               ("gemma3", lambda: phase_gemma3(torch, library, results)),
               ("families", lambda: phase_families(torch, library, results)),
-              ("train", lambda: phase_train(torch, results))]
+              ("train", lambda: phase_train(torch, results)),
+              ("roofline", lambda: phase_roofline(torch, cfg, params, results)),
+              ("dryrun", lambda: phase_dryrun(results))]
     for name, run in phases:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()

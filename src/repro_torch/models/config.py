@@ -1,6 +1,7 @@
 """Model configuration: own copy of ``repro.models.config``, with every
 family's sub-config (``moe``, ``mla``, ``ssm``, ``rwkv``, ``encoder``,
-``vision``) field for field.
+``vision``) field for field, and the dry-run's input shapes
+(``ShapeConfig``, ``SHAPES``).
 
 The port runs every family: the decoder-only ones in
 :mod:`repro_torch.models.lm`, the encoder–decoder one (``audio``) in
@@ -176,3 +177,21 @@ class ModelConfig:
         """Route MLP matmuls through the approximate-multiplier LUT at the
         given operand width (4 = W4A4, 8 = composed W8A8)."""
         return replace(self, approx_mlp=True, approx_bits=int(bits))
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """One (input-shape × step-kind) cell of the dry-run matrix."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: Literal["train", "prefill", "decode"]
+
+
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524_288, 1, "decode"),
+}

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..parallel import fsdp_gather, shard
 from . import layers as L
 from .config import ModelConfig
 from .lm import check_device, next_token_nll, remat_layer
@@ -99,31 +100,30 @@ def init_encdec(cfg: ModelConfig, seed: int = 0, *,
 
 
 def _bidir_attention(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    B, S, _ = x.shape
+    S = x.shape[1]
     q, k, v = L._qkv(cfg, p, x)
     # every key visible: each query sits at position S, past every key
     out = L._masked_softmax_attn(
         q, k, v, torch.full((S,), S, device=x.device),
         torch.arange(S, device=x.device), None, f32_math=cfg.attn_f32)
-    return L.linear(out.reshape(B, S, -1), p["wo"])
+    return L.linear(L.merge_heads(out), p["wo"])
 
 
 def _cross_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
                      enc_k: torch.Tensor, enc_v: torch.Tensor) -> torch.Tensor:
     """x (B, Sq, D); enc_k/enc_v (B, Sk, H, hd) precomputed."""
-    B, Sq, _ = x.shape
-    q = L.linear(x, p["wq"]).reshape(B, Sq, cfg.n_heads, cfg.hd)
+    Sq = x.shape[1]
+    q = L.split_heads(L.linear(x, p["wq"]), cfg.n_heads, cfg.hd)
     Sk = enc_k.shape[1]
     out = L._masked_softmax_attn(
         q, enc_k, enc_v, torch.full((Sq,), Sk, device=x.device),
         torch.arange(Sk, device=x.device), None, f32_math=cfg.attn_f32)
-    return L.linear(out.reshape(B, Sq, -1), p["wo"])
+    return L.linear(L.merge_heads(out), p["wo"])
 
 
 def _cross_kv(cfg: ModelConfig, lp: Params, enc_out: torch.Tensor):
-    B = enc_out.shape[0]
-    k = L.linear(enc_out, lp["cross"]["wk"]).reshape(B, -1, cfg.n_heads, cfg.hd)
-    v = L.linear(enc_out, lp["cross"]["wv"]).reshape(B, -1, cfg.n_heads, cfg.hd)
+    k = L.split_heads(L.linear(enc_out, lp["cross"]["wk"]), cfg.n_heads, cfg.hd)
+    v = L.split_heads(L.linear(enc_out, lp["cross"]["wv"]), cfg.n_heads, cfg.hd)
     return k, v
 
 
@@ -131,25 +131,29 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor) -> torch.Tens
     """frames (B, Tf, D) from the conv stub -> encoder output (B, Tf, D)."""
     dt = cfg.torch_dtype
     x = frames.to(dt) + _table(frames.shape[1], cfg.d_model, dt, frames.device)
+    x = shard(x, "batch", None, None)
     for lp in params["enc_layers"]:
         h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
-        x = x + _bidir_attention(cfg, lp["attn"], h)
+        # added site: the residual replicated over "model" after the mixer
+        # (repro_torch.models.lm._block_full says why)
+        x = shard(x + _bidir_attention(cfg, lp["attn"], h), "batch", None, None)
         h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-        x = x + L.ffn(cfg, lp["ffn"], h)
+        x = shard(x + L.ffn(cfg, lp["ffn"], h), "batch", None, None)
     return L.rmsnorm(x, params["ln_enc"], cfg.norm_eps)
 
 
 def _dec_block(cfg: ModelConfig, lp: Params, x: torch.Tensor,
                enc_out: torch.Tensor) -> torch.Tensor:
-    B, S, _ = x.shape
+    S = x.shape[1]
     h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
     q, k, v = L._qkv(cfg, lp["attn"], h)
     pos = torch.arange(S, device=x.device)
     attn = L._masked_softmax_attn(q, k, v, pos, pos, None, f32_math=cfg.attn_f32)
-    x = x + L.linear(attn.reshape(B, S, -1), lp["attn"]["wo"])
+    # added sites: the residual replicated over "model" after each mixer
+    x = shard(x + L.linear(L.merge_heads(attn), lp["attn"]["wo"]), "batch", None, None)
     h = L.rmsnorm(x, lp["ln_x"], cfg.norm_eps)
     enc_k, enc_v = _cross_kv(cfg, lp, enc_out)
-    x = x + _cross_attention(cfg, lp["cross"], h, enc_k, enc_v)
+    x = shard(x + _cross_attention(cfg, lp["cross"], h, enc_k, enc_v), "batch", None, None)
     h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
     return x + L.ffn(cfg, lp["ffn"], h)
 
@@ -181,11 +185,16 @@ def forward_encdec(
     enc_out = encode(cfg, params, torch.as_tensor(batch["frames"], device=dev))
     tokens = torch.as_tensor(batch["tokens"], device=dev).long()
     S = tokens.shape[1]
-    x = params["embed"][tokens].to(dt) + _table(S, cfg.d_model, dt, dev)
+    x = L.embed(params["embed"], tokens).to(dt) + _table(S, cfg.d_model, dt, dev)
+    x = shard(x, "batch", None, None)
     for lp in params["dec_layers"]:
-        x = block(cfg, lp, x, enc_out)
+        x = shard(block(cfg, lp, x, enc_out), "batch", None, None)
     x = L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
-    logits = torch.matmul(x, params["lm_head"]).float()
+    logits = torch.matmul(x, fsdp_gather(params["lm_head"])).float()
+    # added site: the logits' vocab over "model", as forward_lm constrains
+    # them; unconstrained, the loss gathered them and the lm_head's weight
+    # gradient ran whole on every rank of that axis
+    logits = shard(logits, "batch", None, "model")
     return logits, torch.zeros((), dtype=torch.float32, device=dev)
 
 
@@ -262,14 +271,17 @@ def decode_step_encdec(
     dev = params["embed"].device
     pos_t = L.decode_position(pos, dev)
     table = _table(caches[0]["k"].shape[1], cfg.d_model, dt, dev)
-    x = params["embed"][tokens.long()].to(dt) + table.index_select(0, pos_t)[None]
+    x = L.embed(params["embed"], tokens.long()).to(dt) + table.index_select(0, pos_t)[None]
     for lp, cache in zip(params["dec_layers"], caches):
         h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
         attn_out, _ = L.attention_decode(cfg, lp["attn"], h, cache, pos_t, None)
-        x = x + attn_out
+        x = shard(x + attn_out, "batch", None, None)
         h = L.rmsnorm(x, lp["ln_x"], cfg.norm_eps)
-        x = x + _cross_attention(cfg, lp["cross"], h, cache["xk"], cache["xv"])
+        x = shard(x + _cross_attention(cfg, lp["cross"], h, cache["xk"], cache["xv"]),
+                  "batch", None, None)
         h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
-        x = x + L.ffn(cfg, lp["ffn"], h)
+        # added site: left sharded over "model", the residual made the next
+        # layer's products, and the logits', run whole on every rank
+        x = shard(x + L.ffn(cfg, lp["ffn"], h), "batch", None, None)
     x = L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
-    return torch.matmul(x, params["lm_head"]).float()[:, 0], caches
+    return torch.matmul(x, fsdp_gather(params["lm_head"])).float()[:, 0], caches

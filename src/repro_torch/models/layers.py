@@ -12,6 +12,22 @@ Attention dispatch: ``attention_full`` sends CUDA tensors to the flash
 kernel when the window is ``None`` or a Python int, as the reference
 sends TPU arrays to its Pallas kernel; otherwise, and on the CPU, it runs
 the masked-softmax einsum path, which also takes a window tensor.
+
+Sharding: ``shard(...)`` / ``axis_extent(...)`` stand at the reference's
+sites with its logical names; they do nothing outside
+``repro_torch.parallel.activate(mesh)``.  Under a mesh the parameters are
+DTensors and each weight is gathered over its FSDP axes before its
+product (``fsdp_gather``, what GSPMD inserts).  Where GSPMD reshards
+silently and DTensor raises or picks a layout that repeats a product on
+every rank, an "added site" comment marks the constraint added here:
+``split_heads`` and ``merge_heads`` around a head count the ``model``
+extent does not divide (their gradients sliced back, ``reshard``), the
+repeated KV heads, MLA's down-projection, the attention (the flash kernel
+too) and the RWKV scan run on local shards (``on_shards``), the SSM
+scan's inputs, the MoE dispatch's tokens, routing and picks, the
+embedding lookup (``embed``), and cache writes
+(``parallel.api.index_copy_``).  The LUT product runs on local shards in
+:func:`repro_torch.quant.int4.approx_linear`.
 """
 
 from __future__ import annotations
@@ -22,6 +38,8 @@ from typing import Any
 import torch
 
 from ..kernels import ops
+from ..parallel import axis_extent, fsdp_gather, shard
+from ..parallel.api import index_copy_, is_dtensor, on_shards, reshard
 from ..quant.int4 import approx_linear
 from .config import ModelConfig
 
@@ -48,9 +66,23 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor
     return (xf * torch.rsqrt(var + eps)).to(x.dtype) * (1.0 + w)
 
 
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """``table[tokens]``.  Under a mesh the table is gathered over its FSDP
+    axes and a DTensor one is looked up through ``F.embedding``, whose
+    vocab-parallel rule DTensor has (its rules for indexing, and for the
+    index's backward, fail on some layouts and versions): the same rows."""
+    table = fsdp_gather(table)
+    if is_dtensor(table):
+        # the vocab-parallel rows summed here, not by whatever consumes them
+        return shard(torch.nn.functional.embedding(tokens, table), "batch", None, None)
+    return table[tokens]
+
+
 def linear(x: torch.Tensor, w: torch.Tensor, lut: torch.Tensor | None = None,
            *, backend: ops.Backend = "auto") -> torch.Tensor:
-    """Matmul, optionally routed through the approximate-multiplier LUT."""
+    """Matmul, optionally routed through the approximate-multiplier LUT.
+    Under a mesh the weight is gathered over its FSDP axes first."""
+    w = fsdp_gather(w)
     if lut is not None:
         return approx_linear(x, w, lut, backend=backend)
     return torch.matmul(x, w)
@@ -93,12 +125,40 @@ def init_attention(cfg: ModelConfig, gen: torch.Generator) -> Params:
     return p
 
 
+def split_heads(y: torch.Tensor, *heads: int) -> torch.Tensor:
+    """(B, S, H * hd) -> (B, S, H, hd) for ``heads = (H, hd)``.  Under a
+    mesh whose ``model`` extent does not divide H the last dim is gathered
+    first: a ``model`` shard of it would split a head, which DTensor
+    cannot unflatten (GSPMD reshards there silently).  Its gradient comes
+    back sharded as the product's output was, so the weight gradient is
+    not repeated on every ``model`` rank.  Outside a mesh context only the
+    reshape runs."""
+    B, S = y.shape[:2]
+    if heads[0] % axis_extent("model"):
+        y = reshard(y, "batch", None, None)
+    return y.reshape(B, S, *heads)
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, hd) -> (B, S, H * hd), the inverse of :func:`split_heads`:
+    under a mesh whose ``model`` extent does not divide H the merged value
+    is held replicated, so that its gradient comes back in a layout
+    DTensor can unflatten into heads, and is then sliced over ``model``,
+    so that the output projection and its weight gradient run on local
+    columns, as GSPMD runs them.  Outside a mesh context only the reshape
+    runs."""
+    B, S, H = x.shape[:3]
+    y = x.reshape(B, S, -1)
+    if H % axis_extent("model"):
+        y = reshard(shard(y, "batch", None, None), "batch", None, "model")
+    return y
+
+
 def _qkv(cfg: ModelConfig, p: Params, x: torch.Tensor):
-    B, S, _ = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    q = linear(x, p["wq"]).reshape(B, S, H, hd)
-    k = linear(x, p["wk"]).reshape(B, S, Hkv, hd)
-    v = linear(x, p["wv"]).reshape(B, S, Hkv, hd)
+    q = split_heads(linear(x, p["wq"]), H, hd)
+    k = split_heads(linear(x, p["wk"]), Hkv, hd)
+    v = split_heads(linear(x, p["wv"]), Hkv, hd)
     if cfg.qk_norm:
         q = rmsnorm(q, p["q_norm"], cfg.norm_eps)
         k = rmsnorm(k, p["k_norm"], cfg.norm_eps)
@@ -119,11 +179,25 @@ def _masked_softmax_attn(q, k, v, q_pos, k_pos, window, k_valid=None,
     to run, where the broadcast's is a sum over the copies.
     """
     H = q.shape[2]
-    out_dtype = q.dtype
     Hkv = k.shape[2]
     if Hkv != H:
         k = _repeat_heads(k, H // Hkv)
         v = _repeat_heads(v, H // Hkv)
+    # added site: q laid out as k and v, and the attention itself run on
+    # each rank's (batch, head) shards, so the logits are sharded as the
+    # reference's constraint on them says (batch, model, -, -)
+    q = shard(q, "batch", None, "model", None)
+    k = shard(k, "batch", None, "model", None)
+    v = shard(v, "batch", None, "model", None)
+    out = on_shards(_attention_core, q, k, v, q_pos, k_pos, window, k_valid,
+                    f32_math)
+    return shard(out, "batch", None, "model", None)
+
+
+def _attention_core(q, k, v, q_pos, k_pos, window, k_valid, f32_math):
+    """:func:`_masked_softmax_attn` after the repeat: H query and H KV
+    heads."""
+    out_dtype = q.dtype
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     mask = k_pos[None, :] <= q_pos[:, None]  # causal
@@ -145,7 +219,13 @@ def _repeat_heads(x: torch.Tensor, rep: int) -> torch.Tensor:
     """(B, S, Hkv, hd) -> (B, S, Hkv * rep, hd), head ``h`` repeated
     ``rep`` times in place, as ``repeat_interleave(rep, dim=2)``."""
     B, S, Hkv, hd = x.shape
-    return x[:, :, :, None, :].expand(B, S, Hkv, rep, hd).reshape(B, S, Hkv * rep, hd)
+    out = x[:, :, :, None, :].expand(B, S, Hkv, rep, hd).reshape(B, S, Hkv * rep, hd)
+    if Hkv % axis_extent("model"):
+        # added site: under a mesh whose "model" extent does not divide
+        # Hkv, the repeated heads' gradient comes back replicated, which
+        # DTensor can fold onto Hkv heads (GSPMD reshards there silently)
+        out = shard(out, "batch", None, None, None)
+    return out
 
 
 def attention_full(
@@ -156,24 +236,41 @@ def attention_full(
     *,
     backend: ops.Backend = "auto",
 ) -> torch.Tensor:
-    B, S, _ = x.shape
+    S = x.shape[1]
     q, k, v = _qkv(cfg, p, x)
     pos = torch.arange(S, device=x.device)
     cos, sin = rope_tables(pos, cfg.hd, cfg.rope_theta)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
+    q = shard(q, "batch", None, "model", None)
+    k = shard(k, "batch", None, "model", None)
     use_flash = (ops.use_kernel(x, backend)
                  and (window is None or isinstance(window, int)))
-    if use_flash:
-        out = ops.flash_attention(
-            q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
-            v.transpose(1, 2).contiguous(), causal=True, window=window,
-            backend=backend,
-        ).transpose(1, 2)
-    else:
-        out = _masked_softmax_attn(q, k, v, pos, pos, window,
-                                   f32_math=cfg.attn_f32)
-    return linear(out.reshape(B, S, -1), p["wo"])
+    # either route is priced as the flash kernel's work, so that a cost
+    # count reads the same on both (repro_torch.launch.analysis)
+    with ops.attention_cost(q, k, window):
+        if use_flash:
+            if k.shape[2] % axis_extent("model"):
+                # added site: the KV heads repeated up to the query heads,
+                # so that each rank's query heads find theirs locally
+                k = _repeat_heads(k, q.shape[2] // k.shape[2])
+                v = _repeat_heads(v, q.shape[2] // v.shape[2])
+            v = shard(v, "batch", None, "model", None)
+
+            def flash(q, k, v):
+                return ops.flash_attention(
+                    q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+                    v.transpose(1, 2).contiguous(), causal=True, window=window,
+                    backend=backend,
+                ).transpose(1, 2)
+
+            # added site: the kernel on each rank's (batch, head) shards
+            out = on_shards(flash, q, shard(k, "batch", None, "model", None), v)
+        else:
+            out = _masked_softmax_attn(q, k, v, pos, pos, window,
+                                       f32_math=cfg.attn_f32)
+    out = shard(out, "batch", None, "model", None)
+    return linear(merge_heads(out), p["wo"])
 
 
 def decode_position(pos, device: torch.device) -> torch.Tensor:
@@ -201,7 +298,6 @@ def attention_decode(
     relies on buffer donation to reuse the memory.  The slot is written
     through ``index_copy_`` with a one-element index: a 0-d tensor used
     as an index would read it back to the host."""
-    B = x.shape[0]
     q, k_new, v_new = _qkv(cfg, p, x)
     pos_t = decode_position(pos, x.device)
     cos, sin = rope_tables(pos_t, cfg.hd, cfg.rope_theta)
@@ -210,8 +306,8 @@ def attention_decode(
 
     C = cache["k"].shape[1]
     slot = pos_t % C if window is not None else pos_t
-    cache["k"].index_copy_(1, slot, k_new)
-    cache["v"].index_copy_(1, slot, v_new)
+    index_copy_(cache["k"], 1, slot, k_new)
+    index_copy_(cache["v"], 1, slot, v_new)
 
     idx = torch.arange(C, device=x.device)
     if window is not None:
@@ -224,7 +320,7 @@ def attention_decode(
         k_valid = idx <= pos_t
     out = _masked_softmax_attn(q, cache["k"], cache["v"], pos_t, k_pos, None,
                                k_valid, f32_math=cfg.attn_f32)
-    out = linear(out.reshape(B, 1, -1), p["wo"])
+    out = linear(merge_heads(out), p["wo"])
     return out, cache
 
 
@@ -257,6 +353,8 @@ def _decode_attn_rows(q, k, v, mask, f32_math: bool = True):
         rep = H // Hkv
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
+    k = shard(k, "batch", None, "model", None)
+    v = shard(v, "batch", None, "model", None)
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
     logits = torch.where(mask[:, None, None, :], logits, -1e30)
@@ -264,6 +362,7 @@ def _decode_attn_rows(q, k, v, mask, f32_math: bool = True):
     if not f32_math:
         probs = probs.to(v.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
+    out = shard(out, "batch", None, "model", None)
     return out.to(out_dtype)
 
 
@@ -312,7 +411,7 @@ def attention_decode_ring(
     mask = torch.where(active[:, None], mask, idx == 0)
     out = _decode_attn_rows(q, cache["k"], cache["v"], mask,
                             f32_math=cfg.attn_f32)
-    out = linear(out.reshape(B, 1, -1), p["wo"])
+    out = linear(merge_heads(out), p["wo"])
     return out, cache
 
 
@@ -358,7 +457,6 @@ def attention_decode_paged(
     has not written yet (stale KV from a freed request included) are
     masked by ``j <= pos``, and every table entry past a request's
     allocation is the scratch page, so page reuse needs no zeroing."""
-    B = x.shape[0]
     q, k_new, v_new = _qkv(cfg, p, x)
     q = _rows_rope(q, pos, cfg.hd, cfg.rope_theta)
     k_new = _rows_rope(k_new, pos, cfg.hd, cfg.rope_theta)
@@ -372,7 +470,7 @@ def attention_decode_paged(
     mask = idx <= pos[:, None]
     mask = torch.where(active[:, None], mask, idx == 0)
     out = _decode_attn_rows(q, k, v, mask, f32_math=cfg.attn_f32)
-    out = linear(out.reshape(B, 1, -1), p["wo"])
+    out = linear(merge_heads(out), p["wo"])
     return out, cache
 
 
@@ -403,12 +501,14 @@ def mla_attention_full(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Te
     H = cfg.n_heads
     nope, rope_d, vd, R = (mla.qk_nope_head_dim, mla.qk_rope_head_dim,
                            mla.v_head_dim, mla.kv_lora_rank)
-    q = linear(x, p["wq"]).reshape(B, S, H, nope + rope_d)
+    q = split_heads(linear(x, p["wq"]), H, nope + rope_d)
     q_nope, q_rope = q[..., :nope], q[..., nope:]
-    ckv_kr = linear(x, p["wdkv"])
+    # added site: gathered for the split below, its gradient sliced back
+    # to the product's shards (replicated, that weight gradient repeated)
+    ckv_kr = reshard(linear(x, p["wdkv"]), "batch", None, None)
     c_kv, k_rope = ckv_kr[..., :R], ckv_kr[..., R:]          # (B,S,R), (B,S,rope_d)
-    k_nope = linear(c_kv, p["wuk"]).reshape(B, S, H, nope)
-    v = linear(c_kv, p["wuv"]).reshape(B, S, H, vd)
+    k_nope = split_heads(linear(c_kv, p["wuk"]), H, nope)
+    v = split_heads(linear(c_kv, p["wuv"]), H, vd)
 
     pos = torch.arange(S, device=x.device)
     cos, sin = rope_tables(pos, rope_d, cfg.rope_theta)
@@ -420,7 +520,7 @@ def mla_attention_full(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Te
     kfull = torch.cat([k_nope, k_rope], dim=-1)
     out = _masked_softmax_attn(qfull, kfull, v, pos, pos, None,
                                f32_math=cfg.attn_f32)
-    return linear(out.reshape(B, S, -1), p["wo"])
+    return linear(merge_heads(out), p["wo"])
 
 
 def _mla_absorbed(cfg: ModelConfig, p: Params, q_nope, q_rope, ckv, kr,
@@ -432,7 +532,7 @@ def _mla_absorbed(cfg: ModelConfig, p: Params, q_nope, q_rope, ckv, kr,
     B, H = q_nope.shape[:2]
     nope, rope_d, vd, R = (mla.qk_nope_head_dim, mla.qk_rope_head_dim,
                            mla.v_head_dim, mla.kv_lora_rank)
-    wuk = p["wuk"].reshape(R, H, nope).float()
+    wuk = fsdp_gather(p["wuk"]).reshape(R, H, nope).float()
     q_abs = torch.einsum("bhn,rhn->bhr", q_nope.float(), wuk)   # (B, H, R)
     scale = 1.0 / math.sqrt(nope + rope_d)
     ckv = ckv.float()
@@ -441,7 +541,7 @@ def _mla_absorbed(cfg: ModelConfig, p: Params, q_nope, q_rope, ckv, kr,
     logits = torch.where(mask[:, None, :], logits, -1e30)
     probs = torch.softmax(logits, dim=-1)
     ctx = torch.einsum("bhc,bcr->bhr", probs, ckv)              # (B, H, R)
-    wuv = p["wuv"].reshape(R, H, vd).float()
+    wuv = fsdp_gather(p["wuv"]).reshape(R, H, vd).float()
     out = torch.einsum("bhr,rhv->bhv", ctx, wuv)
     out = out.reshape(B, 1, H * vd).to(out_dtype)
     return linear(out, p["wo"])
@@ -453,10 +553,9 @@ def _mla_new(cfg: ModelConfig, p: Params, x: torch.Tensor, cos, sin):
     (B, R), kr_new (B, rope_d).  ``cos``/``sin`` broadcast as (B or 1,
     1, rope_d // 2)."""
     mla = cfg.mla
-    B = x.shape[0]
     H = cfg.n_heads
     nope, rope_d, R = mla.qk_nope_head_dim, mla.qk_rope_head_dim, mla.kv_lora_rank
-    q = linear(x, p["wq"]).reshape(B, 1, H, nope + rope_d)
+    q = split_heads(linear(x, p["wq"]), H, nope + rope_d)
     q_rope = apply_rope(q[..., nope:], cos, sin)
     ckv_kr = linear(x, p["wdkv"])
     c_new, kr_new = ckv_kr[..., :R], ckv_kr[..., R:]
@@ -477,8 +576,8 @@ def mla_attention_decode(
     pos_t = decode_position(pos, x.device)
     cos, sin = rope_tables(pos_t, cfg.mla.qk_rope_head_dim, cfg.rope_theta)
     q_nope, q_rope, c_new, kr_new = _mla_new(cfg, p, x, cos[None], sin[None])
-    cache["ckv"].index_copy_(1, pos_t, c_new[:, None])
-    cache["kr"].index_copy_(1, pos_t, kr_new[:, None])
+    index_copy_(cache["ckv"], 1, pos_t, c_new[:, None])
+    index_copy_(cache["kr"], 1, pos_t, kr_new[:, None])
     C = cache["ckv"].shape[1]
     valid = (torch.arange(C, device=x.device) <= pos_t)[None]
     out = _mla_absorbed(cfg, p, q_nope, q_rope, cache["ckv"], cache["kr"],
@@ -568,6 +667,7 @@ def ffn(cfg: ModelConfig, p: Params, x: torch.Tensor, lut=None, *,
              * linear(x, p["w3"], lut, backend=backend))
     else:
         h = gelu(linear(x, p["w1"], lut, backend=backend))
+    h = shard(h, "batch", None, "model")
     return linear(h, p["w2"], lut, backend=backend)
 
 
@@ -620,24 +720,31 @@ def moe_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor, lut=None,
     mo = cfg.moe
     B, S, D = x.shape
     T, K, E = B * S, mo.top_k, mo.n_experts
-    flat = x.reshape(T, D)
+    # added site: the tokens over "batch", so that their gradient comes
+    # back in a layout DTensor can unflatten to (B, S)
+    flat = shard(x.reshape(T, D), "batch", None)
     dev = x.device
 
     logits = linear(flat.float(), p["router"])               # (T, E)
     probs = torch.softmax(logits, dim=-1)
     gates, idx = _top_k(probs, K)                             # (T, K)
     gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
+    # added site: the routing's integer bookkeeping replicated (T * K
+    # indices), so that every index tensor derived from it agrees
+    idx = shard(idx, None, None)
 
     # load-balancing aux loss (Switch-style)
     me = probs.mean(dim=0)
     flat_e = idx.reshape(-1)                                  # (T*K,)
     ones = torch.ones((T * K,), dtype=torch.float32, device=dev)
-    ce = torch.zeros((E,), dtype=torch.float32, device=dev).index_add_(
+    # the index sums and the scatter run out of place, which a DTensor
+    # under a mesh needs (an in-place result keeps its input's layout)
+    ce = torch.zeros((E,), dtype=torch.float32, device=dev).index_add(
         0, flat_e, ones) / (T * K)
     aux = mo.aux_loss_weight * E * torch.sum(me * ce)
 
     order = torch.sort(flat_e, stable=True)[1]                # (T*K,)
-    group_sizes = torch.zeros((E,), dtype=torch.long, device=dev).index_add_(
+    group_sizes = torch.zeros((E,), dtype=torch.long, device=dev).index_add(
         0, flat_e, torch.ones_like(flat_e))
     if dropless or mo.impl == "ragged":
         C = T * K
@@ -650,24 +757,39 @@ def moe_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor, lut=None,
     src = src.clamp(max=T * K - 1)
     rows = (order // K)[src]                                  # (E, C) token ids
     xs = flat[rows] * valid[..., None].to(flat.dtype)         # (E, C, D)
-    h1 = torch.bmm(xs, p["w1"])
-    h3 = torch.bmm(xs, p["w3"])
-    ys = torch.bmm(silu(h1) * h3, p["w2"])                    # (E, C, D)
+    # expert parallelism when E divides the data axis (the classic MoE
+    # all-to-all appears at the gather/scatter boundary); otherwise the
+    # capacity axis stays data-parallel and expert weights stay FSDP
+    ep = E % max(1, axis_extent("expert")) == 0 and axis_extent("expert") > 1
+    if ep:
+        xs = shard(xs, "expert", None, None)
+    else:
+        xs = shard(xs, None, "batch", None)
+    # the expert stacks gathered over FSDP, never over the expert axis
+    w1, w3, w2 = (p[n] if ep else fsdp_gather(p[n]) for n in ("w1", "w3", "w2"))
+    h1 = torch.bmm(xs, w1)
+    h3 = torch.bmm(xs, w3)
+    hs = shard(silu(h1) * h3, "expert" if ep else None, None if ep else "batch",
+               "model")
+    ys = torch.bmm(hs, w2)                                    # (E, C, D)
 
     # each (token, k) pick's place in its expert's block
-    inv = torch.empty_like(order).scatter_(
+    inv = torch.empty_like(order).scatter(
         0, order, torch.arange(T * K, device=dev))
     slot = inv - starts[flat_e]                               # (T*K,)
     kept = slot < C
     picked = ys[flat_e, slot.clamp(max=C - 1)].float()        # (T*K, D)
     contrib = torch.where(kept[:, None], picked * gates.reshape(-1, 1), 0.0)
-    contrib = contrib.reshape(T, K, D).gather(
+    # added site: the picks over "batch" alone before they fold to (T, K)
+    contrib = shard(contrib, "batch", None).reshape(T, K, D).gather(
         1, idx.argsort(dim=-1)[..., None].expand(T, K, D))    # ascending expert
     out = contrib[:, 0]
     for k in range(1, K):
         out = out + contrib[:, k]
 
-    out = out.reshape(B, S, D).to(x.dtype)
+    # added site: tokens back over "batch" alone before they unflatten to
+    # (B, S), which DTensor cannot do from the dispatch's layout
+    out = shard(out, "batch", None).reshape(B, S, D).to(x.dtype)
     for sp in p.get("shared", []):
         out = out + ffn(cfg, sp, x, lut, backend=backend)
     return out, aux
@@ -736,7 +858,7 @@ def rwkv_time_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
     """Returns (out, (x_last, wkv_state)).  ``state=None`` => zeros;
     decode passes the carried ``(x_tm, wkv)`` and S == 1."""
     rw = cfg.rwkv
-    B, S, D = x.shape
+    B, _, D = x.shape
     hd = rw.head_dim
     H = D // hd
     if state is None:
@@ -750,17 +872,23 @@ def rwkv_time_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
         return x + (xprev - x) * mu
 
     def heads(w):
-        return linear(mixed(p[f"mix_{w}"]), p[f"w{w}"]).reshape(B, S, H, hd).float()
+        return split_heads(linear(mixed(p[f"mix_{w}"]), p[f"w{w}"]), H, hd).float()
 
     r, k, v = heads("r"), heads("k"), heads("v")
     g = silu(linear(mixed(p["mix_g"]), p["wg"]))
     xw = mixed(p["mix_w"])
     dd = linear(torch.tanh(linear(xw, p["w_a"])), p["w_b"]).float()
     w = torch.exp(-torch.exp(p["w0"][None, None] + dd))      # (B,S,D) in (0,1)
-    w = w.reshape(B, S, H, hd)
+    w = split_heads(w, H, hd)
 
-    y, wkv = _rwkv_wkv_scan(r, k, v, w, p["u"], wkv0)
-    y = rmsnorm(y.reshape(B, S, D).to(x.dtype), p["ln_x"], cfg.norm_eps)
+    # added site: the scan's inputs with the time axis whole, the state as
+    # the cache's wkv spec and u by head, and the scan run on each rank's
+    # (batch, head) shards: no step of the loop communicates
+    r, k, v, w = (shard(t, "batch", None, "model", None) for t in (r, k, v, w))
+    wkv0 = shard(wkv0, "batch", "model", None, None)
+    y, wkv = on_shards(_rwkv_wkv_scan, r, k, v, w, shard(p["u"], "model", None),
+                       wkv0, out_like=(r, wkv0))
+    y = rmsnorm(merge_heads(y).to(x.dtype), p["ln_x"], cfg.norm_eps)
     out = linear(y * g, p["wo"])
     return out, (x[:, -1:], wkv)
 
@@ -818,6 +946,12 @@ def ssm_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
 
     s = (torch.zeros((B, Di, N), dtype=torch.float32, device=x.device)
          if state is None else state)
+    # added site: the scan's inputs with the time axis whole and the state
+    # as the cache's ssm spec, so that no step of the loop communicates
+    decay = shard(decay, "batch", None, "model", None)
+    contrib = shard(contrib, "batch", None, "model", None)
+    Ct = shard(Ct, "batch", None, None)
+    s = shard(s, "batch", "model", None)
     ys = []
     for t in range(S):
         s = decay[:, t] * s + contrib[:, t]

@@ -20,6 +20,7 @@ from torch.utils import checkpoint as _ckpt
 
 from ..device import resolve_device
 from ..kernels import ops
+from ..parallel import fsdp_gather, shard
 from ..precision.widths import width_from_lut
 from . import layers as L
 from .config import ModelConfig
@@ -109,7 +110,7 @@ def _mlp(cfg: ModelConfig, lp: Params, h, lut, backend, *, dropless=False):
 def _block_full(cfg: ModelConfig, lp: Params, x, window, lut, backend):
     if cfg.rwkv is not None:
         h, _ = L.rwkv_time_mix(cfg, lp["rwkv"], L.rmsnorm(x, lp["ln1"], cfg.norm_eps))
-        x = x + h
+        x = shard(x + h, "batch", None, None)
         h, _ = L.rwkv_channel_mix(cfg, lp["rwkv"], L.rmsnorm(x, lp["ln2"], cfg.norm_eps))
         return x + h, None
 
@@ -121,7 +122,10 @@ def _block_full(cfg: ModelConfig, lp: Params, x, window, lut, backend):
     if cfg.ssm is not None:  # hybrid: a parallel SSM head fused with attention
         ssm_out, _ = L.ssm_mix(cfg, lp["ssm"], h)
         attn_out = 0.5 * (attn_out + ssm_out)
-    x = x + attn_out
+    # added site: the residual stream replicated over "model" between the
+    # mixer and the MLP (GSPMD all-reduces the row-parallel product there;
+    # DTensor would reduce-scatter it and then gather every MLP weight)
+    x = shard(x + attn_out, "batch", None, None)
     h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
     mlp_out, aux = _mlp(cfg, lp, h, lut, backend)
     return x + mlp_out, aux
@@ -130,7 +134,7 @@ def _block_full(cfg: ModelConfig, lp: Params, x, window, lut, backend):
 def _head(cfg: ModelConfig, params: Params, x: torch.Tensor) -> torch.Tensor:
     x = L.rmsnorm(x, params["ln_f"], cfg.norm_eps)
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return torch.matmul(x, head).float()
+    return torch.matmul(x, fsdp_gather(head)).float()
 
 
 def check_device(params: Params, dev: torch.device) -> None:
@@ -242,13 +246,14 @@ def forward_lm(
     dev = resolve_device(device)
     check_device(params, dev)
     tokens = torch.as_tensor(batch["tokens"], device=dev).long()
-    x = params["embed"][tokens].to(cfg.torch_dtype)
+    x = L.embed(params["embed"], tokens).to(cfg.torch_dtype)
     if cfg.vision is not None:
         # the projection accumulates in float32 and rounds once, as the
         # reference's einsum does (the CPU's bf16 matmul rounds otherwise)
         patches = torch.as_tensor(batch["patches"], device=dev).to(cfg.torch_dtype)
-        pv = torch.matmul(patches.float(), params["vis_proj"].float())
+        pv = torch.matmul(patches.float(), fsdp_gather(params["vis_proj"]).float())
         x = torch.cat([pv.to(cfg.torch_dtype), x], dim=1)
+    x = shard(x, "batch", None, None)
 
     win = window_schedule(cfg)
     lut_ = None
@@ -262,9 +267,10 @@ def forward_lm(
     for i, lp in enumerate(params["layers"]):
         lut_i = lut_[i] if per_layer_lut else lut_
         x, aux_i = block(cfg, lp, x, layer_window(win, i), lut_i, backend)
+        x = shard(x, "batch", None, None)
         if aux_i is not None:
             aux = aux + aux_i
-    return _head(cfg, params, x), aux
+    return shard(_head(cfg, params, x), "batch", None, "model"), aux
 
 
 def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -335,7 +341,7 @@ def _block_decode(cfg: ModelConfig, lp: Params, x, cache: Params, pos, window,
         h = L.rmsnorm(x, lp["ln1"], cfg.norm_eps)
         out, (x_tm, wkv) = L.rwkv_time_mix(cfg, lp["rwkv"], h,
                                             state=(cache["x_tm"], cache["wkv"]))
-        x = x + out
+        x = shard(x + out, "batch", None, None)
         h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
         out, x_cm = L.rwkv_channel_mix(cfg, lp["rwkv"], h, x_last=cache["x_cm"])
         # the carried state, written in place once every read of it is done
@@ -353,7 +359,7 @@ def _block_decode(cfg: ModelConfig, lp: Params, x, cache: Params, pos, window,
         ssm_out, s = L.ssm_mix(cfg, lp["ssm"], h, state=cache["ssm"])
         cache["ssm"].copy_(s)
         attn_out = 0.5 * (attn_out + ssm_out)
-    x = x + attn_out
+    x = shard(x + attn_out, "batch", None, None)     # as in _block_full
     h = L.rmsnorm(x, lp["ln2"], cfg.norm_eps)
     return x + _mlp(cfg, lp, h, lut, backend, dropless=True)[0]
 
@@ -388,9 +394,14 @@ def decode_step(
     """
     layers = _decode_layers(cfg, luts, width_map, "decode_step")
     pos = L.decode_position(pos, params["embed"].device)
-    x = params["embed"][tokens.long()].to(cfg.torch_dtype)
+    x = L.embed(params["embed"], tokens.long()).to(cfg.torch_dtype)
+    x = shard(x, "batch", None, None)
     for (w, lut_i), lp, cache in zip(layers, params["layers"], caches):
-        x = _block_decode(cfg, lp, x, cache, pos, w, lut_i, backend)
+        # added site: the residual replicated over "model" after each layer,
+        # as the forward's is; left sharded, the next layer's products and
+        # the logits' ran whole on every rank
+        x = shard(_block_decode(cfg, lp, x, cache, pos, w, lut_i, backend),
+                  "batch", None, None)
     return _head(cfg, params, x)[:, 0], caches
 
 
@@ -519,7 +530,8 @@ def decode_step_paged(
     """
     layers = _decode_layers(cfg, luts, width_map, "decode_step_paged")
     pos, tables = pos.long(), tables.long()
-    x = params["embed"][tokens.long()].to(cfg.torch_dtype)
+    x = L.embed(params["embed"], tokens.long()).to(cfg.torch_dtype)
+    x = shard(x, "batch", None, None)
     for (w, lut_i), lp, cache in zip(layers, params["layers"], caches):
         x = _block_decode_paged(cfg, lp, x, cache, pos, tables, active, w,
                                 lut_i, backend)

@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from ..kernels import ops
+from ..parallel.api import on_matmul_shards
 from ..precision.widths import NATIVE_BLOCK_BITS, get_width, width_from_lut
 
 
@@ -64,7 +65,9 @@ def approx_linear(
     table implies (16x16 -> W4A4, 256x256 -> W8A8), with per-row
     activation scales and per-column weight scales.
 
-    The weight is quantized on every call, as in the reference.
+    The weight is quantized on every call, as in the reference.  Under a
+    mesh the table product runs on local shards
+    (:func:`repro_torch.parallel.api.on_matmul_shards`).
     """
     spec = width_from_lut(lut)
     lead = x.shape[:-1]
@@ -73,7 +76,8 @@ def approx_linear(
     xq, sx = quantize_intb(x2, spec.bits, axis=-1)    # (M, K), (M, 1)
     wq, sw = quantize_intb(w, spec.bits, axis=0)      # (K, N), (1, N)
 
-    raw = ops.approx_matmul(xq, wq, lut, backend=backend).float()
+    raw = on_matmul_shards(
+        lambda a, b: ops.approx_matmul(a, b, lut, backend=backend), xq, wq).float()
     # exact correction of the biased-unsigned decomposition
     c = float(spec.bias)
     sum_a = xq.sum(dim=1, keepdim=True).float()   # (M, 1)

@@ -23,6 +23,7 @@ import torch
 from ..kernels import ops
 from ..models import decode_fn, forward_fn, loss_fn
 from ..models.config import ModelConfig
+from ..parallel.api import like
 from .optim import OptimizerConfig, apply_updates, tree_leaves, tree_map
 
 
@@ -72,6 +73,8 @@ def make_train_step(
         # the gradients as a list in the order of tree_leaves(params),
         # which apply_updates walks
         value, grads = compute_grads(params, batch)
+        # under a mesh, each gradient laid out as its parameter and moments
+        grads = [like(g, p) for g, p in zip(grads, tree_leaves(params))]
         params, opt_state, metrics = apply_updates(opt_cfg, params, grads,
                                                    opt_state)
         metrics["loss"] = value

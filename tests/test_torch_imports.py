@@ -27,7 +27,7 @@ def test_port_imports_no_jax_and_no_reference():
                          capture_output=True, text=True,
                          env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""})
     mods = set(out.stdout.split())
-    assert len(mods) >= 91  # every module of the port
+    assert len(mods) >= 96  # every module of the port
     # the configs of every family
     assert {f"repro_torch.configs.{m}" for m in (
         "command_r_plus_104b", "internvl2_1b", "mixtral_8x7b",
@@ -37,6 +37,33 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.train.data", "repro_torch.train.optim",
             "repro_torch.train.step", "repro_torch.train.checkpoint",
             "repro_torch.launch.train", "repro_torch.examples.train_small"} <= mods
+    # sharding, the meshes and the dry-run
+    assert {"repro_torch.parallel", "repro_torch.parallel.api",
+            "repro_torch.parallel.specs", "repro_torch.launch.mesh",
+            "repro_torch.launch.dryrun", "repro_torch.launch.analysis"} <= mods
+
+
+def test_sharding_modules_load_no_test_internals():
+    """The sharding layer, the meshes, the roofline half of the analysis
+    and the dry-run load neither jax, nor repro, nor, until a fake world is
+    started, any module of ``torch.testing._internal`` past those that
+    ``import torch`` loads itself."""
+    code = (
+        "import sys, torch\n"
+        "def internal(): return {m for m in sys.modules if m.startswith('torch.testing._internal')}\n"
+        "base = internal()\n"
+        "import repro_torch.parallel, repro_torch.parallel.specs\n"
+        "from repro_torch.launch import analysis, dryrun, mesh\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad and internal() == base, (bad, internal() - base)\n"
+        "with mesh.fake_world(4):\n"
+        "    assert 'torch.testing._internal.distributed.fake_pg' in sys.modules\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
+                         capture_output=True, text=True,
+                         env={"PYTHONPATH": str(ROOT / "src"), "PATH": ""})
+    assert out.stdout.strip() == "ok"
 
 
 def test_port_sources_name_no_jax_import():
