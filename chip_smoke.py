@@ -64,11 +64,15 @@ failing the run on any mismatch:
    must equal the plain path's bit for bit;
 7. call the system's entry points in this process (``[cli]`` lines): the
    profiler's ``main`` at W4A4 over the searched library (36 flash and 108
-   W4A4 launches a forward), ``measure_profile`` refusing the 8-bit probe
-   before any forward, the serve launcher's ``main`` on the continuous
-   traffic with classes, a controller, the profile, a trace and the health
-   plane (one capture, every request chain complete, launches 108 a replay)
-   and at W8A8, and the inspector's gates over that trace, each exiting 0;
+   W4A4 launches a forward), then at its default widths 4 and 8 (the
+   8-bit probe's layer through the direct kernel, 3 launches a probe
+   forward), with width 8's sensitivities bit-equal to the plain route's
+   on the model cut to 4 layers at 128 rows of one token, the serve
+   launcher's ``main`` on the continuous traffic with classes, a
+   controller, the profile, a trace and the health plane (one capture,
+   every request chain complete, launches 108 a replay) and at W8A8 priced
+   by the width-8 profile, and the inspector's gates over that trace, each
+   exiting 0;
 8. serve gemma3-1b, the reference's default model, at full width from the
    fleet's library (``[gemma3]`` lines): ``forward_lm`` at B=2 S=1024 on
    the cheapest sound operator at W4A4, 26 flash launches (its 22 local
@@ -120,10 +124,11 @@ failing the run on any mismatch:
    kernel route's to the plain route's), the DTensor logits (and loss)
    bit-equal to the plain step's, both kernels launched on local shards;
    then ``python -m
-   repro_torch.launch.dryrun`` in five processes started together and
+   repro_torch.launch.dryrun`` in seven processes started together and
    seeing no card, qwen3-4b at full width on a fake world (train, prefill
-   and decode on 16x16, long_500k's skip record, the 2x16x16 train step),
-   each exiting 0;
+   and decode on 16x16, long_500k's skip record, the 2x16x16 train step)
+   and the MoE train steps of mixtral-8x7b and deepseek-v2-lite-16b on
+   16x16, each exiting 0;
 12. print the kernels line (launches on the main path, deviations, times,
    bounds), where a decode step's time goes, the card's name and power
    limit, and a last line of JSON.
@@ -139,6 +144,7 @@ Details go to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import shutil
 import subprocess
@@ -186,7 +192,20 @@ MM_W8_REFUSED = (8, 33792, 12288)
 # launch it most: the continuous serve's 8 slots at W4A4; at W8A8 both
 # paths (the fixed batch and the continuous serve) run 4 rows
 LINE_SHAPES = {"approx_matmul_w4": [8, 2560, 9728],
-               "approx_matmul_w8": [4, 2560, 9728]}
+               "approx_matmul_w8": [4, 2560, 9728],
+               "approx_matmul_w8_direct": [128, 2560, 9728]}
+# the direct kernel (any (256, 256) table) where its launches come from: the
+# profiler's width-8 probe layer at B=4 x S=32 (M = 128) on qwen3-4b's w1/w3
+# and w2, and decode's 4 rows; each on the probe, random u16 entries,
+# negative entries (one plane, and any int32: two), a composed table; the
+# ragged shapes around its 8- and 32-row tiles with the probe
+DIRECT_SHAPES = [(128, 2560, 9728), (128, 9728, 2560), (4, 2560, 9728)]
+DIRECT_RAGGED = [(1, 64, 40), (8, 300, 200), (9, 53, 129), (37, 53, 29),
+                 (130, 257, 64), (257, 300, 129)]
+DIRECT_TABLES = ("probe", "u16", "negative", "int32", "composed")
+# [cli]'s width-8 profile held against the plain route on qwen3-4b cut to
+# this many layers: the plain gather takes about 40 ms a product at 128 rows
+PROFILE_PLAIN_LAYERS = 4
 MM_RAGGED = [(37, 53, 29), (130, 257, 64), (1, 2560, 9728), (64, 9728, 2560)]
 # the tensor-core kernels' tile edges: activation rows around the 8-, 64-
 # and 128-row tiles, depths ending inside a 16-deep stage, columns ending
@@ -540,6 +559,7 @@ def phase_kernels(torch, results: dict) -> None:
         log(f"[kernels] {name}: bit-equal with a {passes}-pass table at "
             f"{len(MM_SHAPES) + 2} shapes")
     results["tables_past_a_byte"] = wide
+    direct_kernel(torch, gen, codes, composed, rows, results)
 
     worst = 0.0
     timed = {}
@@ -572,6 +592,75 @@ def phase_kernels(torch, results: dict) -> None:
             f"({row['bound_by']})")
     results["max_err"]["flash_attention"] = worst
     results["timings"] = rows
+
+
+def direct_table(torch, gen, kind: str, composed):
+    """A (256, 256) int32 table of ``DIRECT_TABLES`` on the card."""
+    import numpy as np
+
+    from repro_torch.precision.widths import exact_table
+
+    dev = "cuda"
+    if kind == "probe":   # the profiler's 8-bit truncation probe
+        return torch.as_tensor(((exact_table("mul", 8) >> 8) << 8).astype(np.int32),
+                               device=dev)
+    if kind == "composed":
+        return composed(torch.randint(0, 256, (16, 16), generator=gen, device=dev,
+                                      dtype=torch.int32))
+    lo, hi = {"u16": (0, 65536), "negative": (-30_000, 30_000),
+              "int32": (-2**31, 2**31 - 1)}[kind]
+    return torch.randint(lo, hi, (256, 256), generator=gen, device=dev,
+                         dtype=torch.int32)
+
+
+def direct_kernel(torch, gen, codes, composed, rows: list, results: dict) -> None:
+    """The direct kernel (any (256, 256) table) bit-equal to the plain
+    version at ``DIRECT_SHAPES`` on every table of ``DIRECT_TABLES`` and at
+    the ragged shapes on the probe; timed on the probe by CUDA events,
+    beside the plain version, the bound and the W8A8 kernel on a composed
+    table at the same shape.  No PyTorch call computes a table's sum, so
+    the library time is null."""
+    from repro_torch.kernels import approx_matmul as am
+    from repro_torch.kernels import ref
+
+    name, kernel = "approx_matmul_w8_direct", am.approx_matmul_w8_direct
+    worst, checked = 0, 0
+    tables = {kind: direct_table(torch, gen, kind, composed) for kind in DIRECT_TABLES}
+    lut8 = tables["composed"]
+    for M, K, N in DIRECT_SHAPES + DIRECT_RAGGED:
+        a, b = codes((M, K), 256), codes((K, N), 256)
+        for kind in DIRECT_TABLES if (M, K, N) in DIRECT_SHAPES else ("probe",):
+            table = tables[kind]
+            got = kernel(a, b, table)
+            torch.cuda.synchronize()
+            diff = int((got.long() - ref.approx_matmul(a, b, table).long()).abs().max())
+            worst = max(worst, diff)
+            checked += 1
+            require(diff == 0, f"{name} {M}x{K}x{N} on the {kind} table: differs "
+                               f"from the plain version by {diff}")
+        if (M, K, N) not in DIRECT_SHAPES:
+            continue
+        table = tables["probe"]
+        ms = time_ms(torch, lambda: kernel(a, b, table), iters=10)
+        two = time_ms(torch, lambda: kernel(a, b, tables["int32"]), iters=5)
+        plain_ms = time_ms(torch, lambda: ref.approx_matmul(a, b, table), iters=2, warmup=1)
+        w8_ms = time_ms(torch, lambda: am.approx_matmul_w8(a, b, lut8), iters=20)
+        nbytes = 4 * (M * K + K * N + M * N) + 4 * 256 * 256
+        bms, by = bound(nbytes, 2.0 * M * K * N, "int8")
+        rows.append({"name": name, "shape": [M, K, N], "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": None, "bound_ms": bms, "bound_by": by,
+                     "two_plane_ms": two, "w8_composed_ms": w8_ms,
+                     "lookups_per_s": M * K * N / (ms / 1e3), "max_abs_err": 0})
+        log(f"[kernels] {name} {M}x{K}x{N}: bit-equal on the "
+            f"{', '.join(DIRECT_TABLES)} tables; kernel {ms:.4f} ms on the probe "
+            f"(one plane, {M * K * N / (ms / 1e3) / 1e12:.3f} T lookups/s), "
+            f"{two:.4f} ms on the int32 table (two planes), plain {plain_ms:.3f} ms, "
+            f"bound {bms:.4f} ms ({by}); the W8A8 kernel on a composed table "
+            f"{w8_ms:.4f} ms")
+        del a, b
+    log(f"[kernels] {name}: bit-equal in {checked} checks at "
+        f"{len(DIRECT_SHAPES + DIRECT_RAGGED)} shapes")
+    results["max_err"][name] = worst
 
 
 def flash_tag(case) -> str:
@@ -1252,7 +1341,7 @@ def phase_plans(torch, cfg, params, library: Path, results: dict) -> None:
         alone could hide a wrong table behind a degenerate output."""
         step = decode_fn(c)
         got = step(c, params, init_caches(c, 4, 1, device="cuda"), first, 0,
-                   luts=eng._luts, width_map=eng._width_map)[0]
+                   luts=eng._routed, width_map=eng._width_map)[0]
         want = step(c, params, init_caches(c, 4, 1, device="cuda"), first, 0,
                     luts=to_device_luts(stack, torch.device("cuda")),
                     width_map=eng._width_map, backend="ref")[0]
@@ -1461,6 +1550,7 @@ def eager_batch(torch, eng, reqs, luts, backend="auto", warmup=None):
     the last step's logits)."""
     import numpy as np
 
+    from repro_torch.kernels import ops
     from repro_torch.models import decode_fn, init_caches
     from repro_torch.models.lm import to_device_luts
 
@@ -1473,7 +1563,8 @@ def eager_batch(torch, eng, reqs, luts, backend="auto", warmup=None):
     for i, r in enumerate(reqs):
         prompts[i, :len(r.tokens)] = r.tokens
     prompts = torch.from_numpy(prompts).to(dev)
-    stack = None if luts is None else to_device_luts(luts, dev)
+    stack = (None if luts is None
+             else ops.route_luts(to_device_luts(luts, dev), backend=backend))
 
     def run(tok, t):
         return step(cfg, eng.params, caches, tok, t, luts=stack,
@@ -2134,10 +2225,12 @@ def run_cli(torch, name: str, main, argv: list) -> tuple:
 def phase_cli(torch, cfg, params, library: Path, results: dict) -> None:
     """The entry points a user calls, in this process, at full width: the
     profiler (``python -m repro_torch.sensitivity.profile``) at W4A4 over
-    the searched library, its refusal of the 8-bit probe, the serve
-    launcher (``python -m repro_torch.launch.serve``) on the
-    ``[continuous]`` traffic with classes, a controller, the profile, a
-    trace and the health plane, a W8A8 serve, and the inspector
+    the searched library and at its default widths 4 and 8 (the 8-bit
+    probe through the direct kernel, held against the plain route on a
+    cut model), the serve launcher (``python -m repro_torch.launch.serve``)
+    on the ``[continuous]`` traffic with classes, a controller, the
+    profile, a trace and the health plane, a W8A8 serve priced by the
+    width-8 profile, and the inspector
     (``python -m repro_torch.obs``) over the serve's trace.  Each call's
     standard output goes to ``chiprun_out/cli_<name>.log``; the tracer and
     the process's metric registry are reset after each, as a new process
@@ -2268,23 +2361,72 @@ def phase_cli(torch, cfg, params, library: Path, results: dict) -> None:
     del ker_e, ref_e, k, r
     release(torch)
 
-    # 2. the 8-bit probe, not composed from a tile, refused before a forward
+    # 2. the profiler at its default widths, 4 and 8, without a library: 1 +
+    # L forwards a width.  The width-8 probe (the exact 8-bit product with
+    # its low 8 bits dropped) is not composed from a tile, so each probe
+    # forward sends its layer's three products to the direct kernel and the
+    # other layers' to W8A8; the exact baseline runs W8A8 alone
+    p48 = tmp / "p48.json"
+    reset_counts()
+    _, text, secs48 = call("profile_w48", profile_cli.main, [
+        "--arch", "qwen3-4b", "--batch", 4, "--seq", 32, "--out", p48])
+    counts = read_counts()
+    forwards = 1 + L
+    require(counts["approx_matmul_w8_direct"] == 3 * L
+            and counts["approx_matmul_w8"] == 3 * L * forwards - 3 * L
+            and counts["approx_matmul_w4"] == 3 * L * forwards
+            and counts["flash_attention"] == 2 * forwards * L,
+            f"cli profile --widths 4,8 launches {counts}, expected {forwards} "
+            f"forwards a width")
+    prof48 = profile_cli.load_profile(p48)
+    sens8 = prof48.sensitivities(8)
+    require(prof48.widths == (4, 8) and np.isfinite(sens8).all() and (sens8 > 0).all()
+            and prof48.probe_mae[8] == profile_cli.truncation_probe(8).mae,
+            f"cli profile --widths 4,8: widths {prof48.widths}, sens[8] {sens8}")
+    credit(results, "cli profile 4,8", counts, "approx_matmul_w8_direct",
+           "approx_matmul_w8", "approx_matmul_w4", "flash_attention")
+    out["profile_w48"] = {"forwards": 2 * forwards, "seconds": secs48,
+                          "sens8": sens8.tolist(), "probe_mae8": prof48.probe_mae[8],
+                          "launches": counts}
+    log(f"[cli] profile (--widths 4,8 by default, B=4 S=32): {2 * forwards} "
+        f"forwards in {secs48:.2f} s (weights' init included); approx_matmul_w8_direct "
+        f"launches {counts['approx_matmul_w8_direct']} (3 a probe forward), "
+        f"approx_matmul_w8 {counts['approx_matmul_w8']}, approx_matmul_w4 "
+        f"{counts['approx_matmul_w4']}, flash {counts['flash_attention']}; sens[8] "
+        f"{sens8.min():.4g}..{sens8.max():.4g} (probe mae {prof48.probe_mae[8]})")
+
+    # 2b. sens[8] on the kernel route equal to the plain route's, at a size
+    # the plain gather affords: qwen3-4b cut to PROFILE_PLAIN_LAYERS of its
+    # layers (the smoke's weights), 128 rows of one token each (the
+    # profiler's 128 rows; with one position attention returns v exactly on
+    # both routes, so the logits, and the drifts, are bit-equal)
+    depth = PROFILE_PLAIN_LAYERS
+    cut = dataclasses.replace(cfg, n_layers=depth).with_approx_mlp(8)
+    cut_params = {**params, "layers": params["layers"][:depth]}
     gen = torch.Generator(device="cuda").manual_seed(0)
-    batch = {"tokens": torch.randint(0, cfg.vocab_size, (4, 32), generator=gen,
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (128, 1), generator=gen,
                                      device="cuda")}
     reset_counts()
-    try:
-        profile_cli.measure_profile(cfg.with_approx_mlp(), params, batch, widths=(8,))
-        refused = None
-    except ValueError as e:
-        refused = str(e)
+    t0 = time.perf_counter()
+    ker = profile_cli.measure_profile(cut, cut_params, batch, widths=(8,))
+    torch.cuda.synchronize()
+    ker_s = time.perf_counter() - t0
     counts = read_counts()
-    require(refused is not None and "not composed" in refused
-            and not any(counts.values()),
-            f"the W8 probe: refused {refused!r}, launches {counts}")
-    out["w8_probe_refused"] = refused
-    log(f"[cli] ProfileW8Refused: measure_profile(widths=(8,)) raised before any "
-        f"forward (launches {sum(counts.values())}): {refused}")
+    t0 = time.perf_counter()
+    plain = profile_cli.measure_profile(cut, cut_params, batch, widths=(8,), backend="ref")
+    plain_s = time.perf_counter() - t0
+    require(np.array_equal(ker.sens[8], plain.sens[8]) and (ker.sens[8] > 0).all()
+            and counts["approx_matmul_w8_direct"] == 3 * depth,
+            f"cli profile width 8 at {depth} layers: kernel route {ker.sens[8]}, "
+            f"plain route {plain.sens[8]}, launches {counts}")
+    out["profile_w8_plain"] = {"layers": depth, "rows": 128, "sens8": ker.sens[8].tolist(),
+                               "kernel_s": ker_s, "plain_s": plain_s, "launches": counts}
+    log(f"[cli] profile width 8 on qwen3-4b cut to {depth} layers, 128 rows of one "
+        f"token: sens[8] {', '.join(f'{v:.6g}' for v in ker.sens[8])} on the kernel "
+        f"route ({ker_s:.2f} s, approx_matmul_w8_direct launches "
+        f"{counts['approx_matmul_w8_direct']}), bit-equal to the plain route's "
+        f"({plain_s:.2f} s)")
+    release(torch)
 
     # 3. the continuous serve through the launcher: the [continuous] traffic
     # (its spike's base is 1 arrival a tick, the phase's 2); as in [control],
@@ -2365,14 +2507,15 @@ def phase_cli(torch, cfg, params, library: Path, results: dict) -> None:
         f"{ref['ttft_ms']['p95']} ms")
     release(torch)
 
-    # 4. a W8A8 serve through the launcher: no controller, so no shadow
-    # step; a fixed batch replays the step once a position, prompt and
-    # generation alike
+    # 4. a W8A8 serve through the launcher, priced by the width-8 profile
+    # measured on the card in step 2: no controller, so no shadow step; a
+    # fixed batch replays the step once a position, prompt and generation
+    # alike
     w8_json = tmp / "w8.json"
     reset_counts()
     _, text, secs = call("serve_w8", serve_cli.main, [
         "--arch", "qwen3-4b", "--width", 8, "--library", library,
-        "--qos-budget", "1e9", "--batch", 4, "--prompt-len", 16,
+        "--profile", p48, "--qos-budget", "1e9", "--batch", 4, "--prompt-len", 16,
         "--gen-len", 16, "--bench-json", w8_json])
     counts = read_counts()
     w8 = json.loads(w8_json.read_text())
@@ -2957,11 +3100,12 @@ def family_serve(torch, cfg, params, stack, spec, results: dict) -> dict:
 def family_step_profile(torch, cfg, params, stack, arch: str) -> dict:
     """Where one eager decode step's device time goes, at 8 rows
     (``torch.profiler``, the top kernels by device time)."""
+    from repro_torch.kernels import ops
     from repro_torch.models import decode_fn, init_caches
 
     caches = init_caches(cfg, 8, 32)
     tok = torch.zeros((8, 1), dtype=torch.int32, device="cuda")
-    luts = None if stack is None else torch.as_tensor(stack, device="cuda")
+    luts = None if stack is None else ops.route_luts(torch.as_tensor(stack, device="cuda"))
     step = decode_fn(cfg)
 
     def decode():
@@ -3508,6 +3652,7 @@ def reset_counts() -> None:
 
     am.approx_matmul_w4.launches = 0
     am.approx_matmul_w8.launches = 0
+    am.approx_matmul_w8_direct.launches = 0
     fa.flash_attention.launches = 0
     te.template_eval.launches = 0
 
@@ -3519,6 +3664,7 @@ def read_counts() -> dict:
 
     return {"approx_matmul_w4": am.approx_matmul_w4.launches,
             "approx_matmul_w8": am.approx_matmul_w8.launches,
+            "approx_matmul_w8_direct": am.approx_matmul_w8_direct.launches,
             "flash_attention": fa.flash_attention.launches,
             "template_eval": te.template_eval.launches}
 
@@ -3727,7 +3873,9 @@ def phase_forward(torch, cfg, params, results: dict) -> None:
 DRYRUN_CELLS = ([["--arch", "qwen3-4b", "--shape", s]
                  for s in ("train_4k", "prefill_32k", "decode_32k", "long_500k")]
                 + [["--arch", "qwen3-4b", "--shape", "train_4k", "--multi-pod",
-                    "--no-roofline"]])
+                    "--no-roofline"]]
+                + [["--arch", arch, "--shape", "train_4k"]
+                   for arch in ("mixtral-8x7b", "deepseek-v2-lite-16b")])
 DRYRUN_TIMEOUT_S = 400
 CARD_BYTES = 80e9          # the H100's HBM
 
@@ -3736,8 +3884,9 @@ def phase_dryrun(results: dict) -> None:
     """``python -m repro_torch.launch.dryrun`` for each cell of
     ``DRYRUN_CELLS`` as subprocesses, all started together and each
     checked for exit code 0: qwen3-4b at full width on a fake 16x16 world
-    for train, prefill and decode, ``long_500k``'s skip record, and the
-    2x16x16 train step without the roofline.  The subprocesses see no
+    for train, prefill and decode, ``long_500k``'s skip record, the
+    2x16x16 train step without the roofline, and the MoE train steps of
+    mixtral-8x7b and deepseek-v2-lite-16b on 16x16.  The subprocesses see no
     card (``CUDA_VISIBLE_DEVICES`` empty): the dry-run runs on meta
     tensors by design."""
     import os
@@ -4052,6 +4201,11 @@ def main() -> int:
                                     "src/repro/kernels/approx_matmul.py:74"),
                "approx_matmul_w8": ("src/repro_torch/kernels/csrc/approx_matmul.cu",
                                     "src/repro/kernels/approx_matmul.py:88"),
+               # no Pallas kernel takes an uncomposed (256, 256) table: the
+               # reference leaves them to its plain version
+               # (src/repro/kernels/approx_matmul.py:30-32)
+               "approx_matmul_w8_direct": ("src/repro_torch/kernels/csrc/approx_matmul.cu",
+                                           "src/repro/kernels/ref.py:64"),
                "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:31"),
                "template_eval": ("src/repro_torch/kernels/csrc/template_eval.cu",

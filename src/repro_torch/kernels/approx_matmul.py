@@ -2,20 +2,25 @@
 
 ``approx_matmul_w4`` replaces the Pallas ``_kernel`` and
 ``approx_matmul_w8`` the Pallas ``_kernel8`` of
-``repro/kernels/approx_matmul.py``; the source says how each is designed
-and what bounds it on the H100.  Both take CUDA tensors only: the plain
+``repro/kernels/approx_matmul.py``; ``approx_matmul_w8_direct`` takes
+any ``(256, 256)`` table, which the Pallas kernels do not (``_kernel8``
+takes composed tables only).  The source says how each is designed and
+what bounds it on the H100.  All take CUDA tensors only: the plain
 version for CPU tensors is :func:`repro_torch.kernels.ref.approx_matmul`,
 chosen by :mod:`repro_torch.kernels.ops`.
 
-Both kernels run the lookup as a product of u8 operands on the tensor
+The first two run the lookup as a product of u8 operands on the tensor
 cores, one pass over K for each byte of the table's widest entry: a
 ``(16, 16)`` table, or the ``(16, 16)`` generator tile of a composed
 ``(256, 256)`` table (the W8A8 kernel recovers the tile itself, on the
-device).  Byte tables take one pass, entries up to 65,535 two; the sum
-is exact modulo 2^32 for any int32 table, as the plain version's.  The
-W8A8 kernel gives wrong sums for a table that is not composed; callers
-verify a stack once when they adopt it (:func:`check_tables`), not on
-every call.
+device).  Byte tables take one pass, entries up to 65,535 two.  The
+direct kernel looks every product up in a u16 plane of the table's
+offsets from its least entry, one pass a plane.  Every sum is exact
+modulo 2^32 for any int32 table, as the plain version's.  The W8A8
+kernel gives wrong sums for a table that is not composed, so which of
+the two a side-256 table goes to is decided once, when a caller adopts
+it (:func:`check_tables` returns each table's form), and carried to each
+call; a side-256 call without a form is refused.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ from . import _build
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("approx_matmul")
-    for fn in (lib.approx_matmul_w4, lib.approx_matmul_w8):
+    for fn in (lib.approx_matmul_w4, lib.approx_matmul_w8, lib.approx_matmul_w8_direct):
         fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
@@ -64,38 +69,30 @@ def tile_to_width(tile: torch.Tensor) -> torch.Tensor:
     return t(lo, lo) + 16 * (t(lo, hi) + t(hi, lo)) + 256 * t(hi, hi)
 
 
-def check_composed(lut: torch.Tensor) -> None:
-    """Raise unless every ``(256, 256)`` table in ``lut`` (any leading
-    axes) is exactly ``tile_to_width(extract_tile(table))``.  Reads the
-    result back to the host, so it runs once per adopted stack."""
+def is_composed(lut: torch.Tensor) -> torch.Tensor:
+    """Whether each ``(256, 256)`` table in ``lut`` (any leading axes) is
+    exactly ``tile_to_width(extract_tile(table))``: a bool tensor over the
+    leading axes, on the tables' device."""
     if lut.shape[-2:] != (256, 256):
         raise ValueError(f"expected (..., 256, 256) tables, got {tuple(lut.shape)}")
-    if not torch.equal(tile_to_width(extract_tile(lut)), lut):
-        raise ValueError(
-            "8-bit table is not composed from a 16x16 tile; the W8A8 kernel "
-            "takes only tile_to_width images (backend='ref' takes any table)")
+    return (tile_to_width(extract_tile(lut)) == lut).flatten(-2).all(-1)
 
 
-def check_tables(luts: torch.Tensor) -> None:
-    """Raise unless every table in ``luts`` (any leading axes) is in the
-    kernels' contract: side 16, or side 256 composed from a tile, with
-    non-negative entries (the tile's at W8A8), as the products of
-    unsigned codes are.  Entries past 255 are taken, at one more pass
-    over K a byte.  Reads the tables back to the host, so it runs once
-    per adopted stack."""
+def check_tables(luts: torch.Tensor):
+    """Each table's form for the kernel route, from ``luts`` (any leading
+    axes): ``None`` for ``(16, 16)`` tables, which have one kernel; for
+    ``(256, 256)`` tables whether each goes to the direct kernel (it is
+    not composed from a tile), a bool for one table, a tuple of bools
+    along the leading axis of a stack.  Any int32 entry is taken.  Reads
+    the tables back to the host, so it runs once per adopted stack."""
     side = luts.shape[-1]
-    if side == 256:
-        check_composed(luts)
-        luts = extract_tile(luts)
-    elif luts.shape[-2:] != (16, 16):
+    if side == 16 and luts.shape[-2:] == (16, 16):
+        return None
+    if side != 256:
         raise ValueError(f"expected (..., 16, 16) or (..., 256, 256) tables, "
                          f"got {tuple(luts.shape)}")
-    lo = int(luts.min())
-    if lo < 0:
-        what = "tile" if side == 256 else "table"
-        raise ValueError(
-            f"{what} entry {lo} is negative; the LUT matmul kernels take "
-            f"tables of non-negative products (backend='ref' takes any table)")
+    direct = (~is_composed(luts)).tolist()
+    return tuple(direct) if isinstance(direct, list) else direct
 
 
 def _check_int32(t: torch.Tensor, name: str) -> None:
@@ -151,16 +148,33 @@ def approx_matmul_w8(a: torch.Tensor, b: torch.Tensor,
     return out
 
 
+def approx_matmul_w8_direct(a: torch.Tensor, b: torch.Tensor,
+                            lut: torch.Tensor) -> torch.Tensor:
+    """``sum_k LUT8[a[m,k], b[k,n]]`` for codes in [0, 256) and any
+    (256, 256) int32 table, on the card (a lookup a product)."""
+    out = _launch("approx_matmul_w8_direct", a, b, lut, 8)
+    approx_matmul_w8_direct.launches += 1
+    return out
+
+
 approx_matmul_w4.launches = 0
 approx_matmul_w8.launches = 0
+approx_matmul_w8_direct.launches = 0
 
 
-def approx_matmul(a: torch.Tensor, b: torch.Tensor,
-                  lut: torch.Tensor) -> torch.Tensor:
-    """The kernel for the table's width: 16 -> W4A4, 256 -> W8A8."""
+def approx_matmul(a: torch.Tensor, b: torch.Tensor, lut: torch.Tensor, *,
+                  direct: bool | None = None) -> torch.Tensor:
+    """The kernel for the table: side 16 -> W4A4; side 256 -> the direct
+    kernel where ``direct`` (the form :func:`check_tables` gave), else
+    W8A8.  A side-256 table without a form is refused: reading the
+    table here would stall every call, and a captured graph not at all."""
     side = lut.shape[-1]
     if side == 16:
         return approx_matmul_w4(a, b, lut)
     if side == 256:
-        return approx_matmul_w8(a, b, lut)
+        if direct is None:
+            raise ValueError(
+                "a (256, 256) table on the kernel route needs its form "
+                "(ops.check_luts, or a stack adopted by ops.route_luts)")
+        return (approx_matmul_w8_direct if direct else approx_matmul_w8)(a, b, lut)
     raise ValueError(f"unsupported LUT side {side}; expected 16 or 256")

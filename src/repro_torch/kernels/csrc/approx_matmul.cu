@@ -8,6 +8,9 @@
 //     (256, 256) table, whose 8-bit product factors through the table's
 //     (16, 16) generator tile T:
 //       LUT8[a, b] = T[al, bl] + 16 (T[al, bh] + T[ah, bl]) + 256 T[ah, bh]
+// A third kernel, approx_matmul_w8_direct (at the end of this file), takes
+// any (256, 256) table by direct lookup; the wrapper sends a table there
+// unless it is composed.
 //
 // The algebra.  The lookup is a product of contraction depth 16 K between
 // two u8 operands.  A table (or tile) entry in [0, 255] is one byte; a
@@ -242,6 +245,46 @@ __device__ __forceinline__ int floordiv(int x, int d) {  // d > 0
   return (x % d != 0 && x < 0) ? q - 1 : q;
 }
 
+// Start the cp.async copies of one stage's int32 codes into shared memory:
+// BM rows of A from m0 (kBK codes from k0 each, a_stride words apart, at
+// sa) and kBK rows of B from k0 (BN codes from n0 each, at sb).  Codes at
+// or past k_end, M or N are zero-filled.  16 bytes a copy where the rows
+// are aligned (vec_a, vec_b), 4 otherwise.
+template <int BM, int BN, int kThreads>
+__device__ __forceinline__ void load_codes(uint32_t sa, uint32_t sb, const int32_t* a,
+                                           const int32_t* b, int m0, int n0, int k0,
+                                           int k_end, int M, int K, int N, int a_stride,
+                                           bool vec_a, bool vec_b, int tid) {
+  for (int c = tid; c < BM * (kBK / 4); c += kThreads) {
+    const int r = c / (kBK / 4), q = (c % (kBK / 4)) * 4;
+    const int m = m0 + r, k = k0 + q;
+    const uint32_t dst = sa + (r * a_stride + q) * 4;
+    if (vec_a) {
+      const bool live = m < M && k < k_end;
+      cp_async16(dst, live ? a + static_cast<size_t>(m) * K + k : a, live);
+    } else {
+      for (int e = 0; e < 4; ++e) {
+        const bool live = m < M && k + e < k_end;
+        cp_async4(dst + 4 * e, live ? a + static_cast<size_t>(m) * K + k + e : a, live);
+      }
+    }
+  }
+  for (int c = tid; c < kBK * (BN / 4); c += kThreads) {
+    const int r = c / (BN / 4), q = (c % (BN / 4)) * 4;
+    const int k = k0 + r, n = n0 + q;
+    const uint32_t dst = sb + (r * BN + q) * 4;
+    if (vec_b) {
+      const bool live = k < k_end && n < N;
+      cp_async16(dst, live ? b + static_cast<size_t>(k) * N + n : b, live);
+    } else {
+      for (int e = 0; e < 4; ++e) {
+        const bool live = k < k_end && n + e < N;
+        cp_async4(dst + 4 * e, live ? b + static_cast<size_t>(k) * N + n + e : b, live);
+      }
+    }
+  }
+}
+
 template <int BM, bool kW8>
 __global__ void __launch_bounds__(Cfg<BM, kW8>::kThreads, Cfg<BM, kW8>::kMinBlocks)
 lut_mma_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
@@ -286,37 +329,10 @@ lut_mma_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
                       (__syncthreads_or(entry > 0xFFFFFFu) != 0);
 
   auto load_stage = [&](int s) {  // start the copies of stage s's codes
-    const int k0 = kb + s * kBK;
     const int32_t* st = s_codes + (s % C::kStages) * C::kStageWords;
-    const uint32_t sa = smem_addr(st), sb = smem_addr(st + BM * C::kAStride);
-    for (int c = tid; c < BM * (kBK / 4); c += kThreads) {
-      const int r = c / (kBK / 4), q = (c % (kBK / 4)) * 4;
-      const int m = m0 + r, k = k0 + q;
-      const uint32_t dst = sa + (r * C::kAStride + q) * 4;
-      if (vec_a) {
-        const bool live = m < M && k < K;
-        cp_async16(dst, live ? a + static_cast<size_t>(m) * K + k : a, live);
-      } else {
-        for (int e = 0; e < 4; ++e) {
-          const bool live = m < M && k + e < K;
-          cp_async4(dst + 4 * e, live ? a + static_cast<size_t>(m) * K + k + e : a, live);
-        }
-      }
-    }
-    for (int c = tid; c < kBK * (kBN / 4); c += kThreads) {
-      const int r = c / (kBN / 4), q = (c % (kBN / 4)) * 4;
-      const int k = k0 + r, n = n0 + q;
-      const uint32_t dst = sb + (r * kBN + q) * 4;
-      if (vec_b) {
-        const bool live = k < K && n < N;
-        cp_async16(dst, live ? b + static_cast<size_t>(k) * N + n : b, live);
-      } else {
-        for (int e = 0; e < 4; ++e) {
-          const bool live = k < K && n + e < N;
-          cp_async4(dst + 4 * e, live ? b + static_cast<size_t>(k) * N + n + e : b, live);
-        }
-      }
-    }
+    load_codes<BM, kBN, kThreads>(smem_addr(st), smem_addr(st + BM * C::kAStride), a, b,
+                                  m0, n0, kb + s * kBK, K, M, K, N, C::kAStride,
+                                  vec_a, vec_b, tid);
   };
 
   // the expanded activation rows of stage s, into buffer `buf`: the 16
@@ -526,6 +542,211 @@ int launch(const int32_t* a, const int32_t* b, const int32_t* table,
   return run<128, kW8>(a, b, table, out, M, K, N, stream);
 }
 
+// ---------------------------------------------------------------------------
+// Any (256, 256) table: the direct lookup (W8A8 tables that are not composed
+// from a tile, such as the profiler's truncation probe, which has no Pallas
+// counterpart: the reference's _kernel8 takes composed tables only).
+//
+// The algebra.  With lo the table's least entry, every entry is lo plus an
+// offset below 2^32, so
+//     out[m, n] = K lo + sum_k (LUT - lo)[a, b]                 (mod 2^32)
+// and the offsets split into u16 planes, LUT - lo = 65536 H + L.  One
+// plane of 65,536 u16 entries is 128 KiB: it fits a block's shared memory,
+// where the int32 table (256 KiB) does not.  A table whose entries span
+// less than 65,536 (the exact 8-bit product, 0..65,025, and the probe,
+// 0..65,024) takes one pass over K with the plane L; a wider one takes two,
+// H then L, by Horner's rule (acc = 65536 acc + pass).  The u32
+// accumulators wrap modulo 2^32 like the int32 sum they reproduce, so any
+// int32 table is exact, negative entries included.
+//
+// The form.  Each block stages the plane in shared memory once (every
+// block reads the table's least and greatest entries first) and then
+// loops over work units (an output tile and a range of K), so the 256 KiB
+// table is read once a block, not once a tile.  Codes stream through two
+// cp.async stages, 16 codes deep.  A thread owns one output column n and
+// eight rows m: its B code at k is its own, the eight A codes are shared
+// by the warp (broadcast reads of four codes at once), and each lookup is
+// one 16-bit shared-memory read at (a << 8) | b.  The 32 lanes of a warp
+// read one table row, 128 words over 32 banks, so lanes conflict only
+// where their codes b differ but fall in one bank.  Codes past K are
+// zero-filled and their plane[0] taken back; rows and columns past the
+// edges are not stored.  Too few tiles for the card split K across units
+// that add into a zeroed output with integer atomics, as above.
+//
+// Bounds on the H100.  The function's bound is the int32 codes and output
+// once: 0.032 ms at the profiler's (128, 2560, 9728).  This form's floor
+// is shared memory's 32 lookups a clock an SM, 0.43 ms there (3.2 G
+// lookups over 132 SMs at 1.755 GHz), before conflicts.
+constexpr int kDThreads = 512;
+
+template <int RG>  // row groups: a block is 8 RG rows by 512 / RG columns
+struct DCfg {
+  static constexpr int kTM = 8;                 // rows m of a thread
+  static constexpr int kBM = kTM * RG;
+  static constexpr int kBN = kDThreads / RG;    // a thread a column
+  static constexpr int kAStride = kBK + 4;      // words a staged A row
+  static constexpr int kStageWords = kBM * kAStride + kBK * kBN;
+  static constexpr int kPlaneBytes = 256 * 256 * 2;
+  static constexpr int kSmem = kPlaneBytes + 2 * kStageWords * 4 + 2 * 4 * (kDThreads / 32);
+};
+
+template <int RG>
+__global__ void __launch_bounds__(kDThreads, 1)
+lut_direct_kernel(const int32_t* __restrict__ a, const int32_t* __restrict__ b,
+                  const int32_t* __restrict__ table, int32_t* __restrict__ out,
+                  int M, int K, int N, int k_chunk, int splits, int vec_a, int vec_b) {
+  using C = DCfg<RG>;
+  constexpr int kBM = C::kBM, kBN = C::kBN, kTM = C::kTM;
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint16_t* s_plane = reinterpret_cast<uint16_t*>(smem);
+  int32_t* s_codes = reinterpret_cast<int32_t*>(smem + C::kPlaneBytes);  // [2][kStageWords]
+  int32_t* s_red = s_codes + 2 * C::kStageWords;                           // [warps][2]
+
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int col = tid % kBN, rg = tid / kBN;
+
+  // the table's least and greatest entries; the offsets span `range`
+  int lo = INT32_MAX, hi = INT32_MIN;
+  for (int i = tid; i < 256 * 256; i += kDThreads) {
+    lo = min(lo, table[i]);
+    hi = max(hi, table[i]);
+  }
+  lo = __reduce_min_sync(0xFFFFFFFFu, lo);
+  hi = __reduce_max_sync(0xFFFFFFFFu, hi);
+  if ((tid & 31) == 0) {
+    s_red[2 * warp] = lo;
+    s_red[2 * warp + 1] = hi;
+  }
+  __syncthreads();
+  for (int w = 0; w < kDThreads / 32; ++w) {
+    lo = min(lo, s_red[2 * w]);
+    hi = max(hi, s_red[2 * w + 1]);
+  }
+  const int n_planes = static_cast<uint32_t>(hi) - static_cast<uint32_t>(lo) > 0xFFFFu ? 2 : 1;
+
+  auto stage_plane = [&](int p) {  // plane p of the offsets: bits 16 p and up
+    __syncthreads();               // every read of the previous plane is done
+    for (int i = tid; i < 256 * 256; i += kDThreads) {
+      s_plane[i] = static_cast<uint16_t>(
+          (static_cast<uint32_t>(table[i]) - static_cast<uint32_t>(lo)) >> (16 * p));
+    }
+    __syncthreads();
+  };
+
+  const int tiles_n = (N + kBN - 1) / kBN;
+  const int n_units = tiles_n * ((M + kBM - 1) / kBM) * splits;
+  if (n_planes == 1) stage_plane(0);
+  for (int u = blockIdx.x; u < n_units; u += gridDim.x) {
+    const int split = u % splits, tile = u / splits;
+    const int n0 = (tile % tiles_n) * kBN, m0 = (tile / tiles_n) * kBM;
+    const int kb = split * k_chunk, ke = min(K, kb + k_chunk);
+    const int n_stages = (ke - kb + kBK - 1) / kBK;
+    const int row0 = rg * kTM, rows_live = M - m0 - row0;  // warp-uniform
+
+    auto load_stage = [&](int s) {  // stage s's codes into buffer s & 1
+      const int32_t* st = s_codes + (s & 1) * C::kStageWords;
+      load_codes<kBM, kBN, kDThreads>(smem_addr(st), smem_addr(st + kBM * C::kAStride), a,
+                                      b, m0, n0, kb + s * kBK, ke, M, K, N, C::kAStride,
+                                      vec_a, vec_b, tid);
+    };
+
+    uint32_t acc[kTM];
+#pragma unroll
+    for (int r = 0; r < kTM; ++r) acc[r] = 0u;
+    for (int p = n_planes - 1; p >= 0; --p) {
+      if (n_planes > 1) stage_plane(p);
+      if (p + 1 < n_planes) {  // Horner: the pass so far weighs 65536 more
+#pragma unroll
+        for (int r = 0; r < kTM; ++r) acc[r] <<= 16;
+      }
+      load_stage(0);
+      cp_async_commit();
+      for (int s = 0; s < n_stages; ++s) {
+        if (s + 1 < n_stages) load_stage(s + 1);
+        cp_async_commit();
+        cp_async_wait<1>();
+        __syncthreads();  // stage s is in
+        const int32_t* sa = s_codes + (s & 1) * C::kStageWords;
+        const int32_t* sb = sa + kBM * C::kAStride;
+#pragma unroll
+        for (int kk = 0; kk < kBK; kk += 4) {
+          uint32_t bc[4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) bc[j] = static_cast<uint32_t>(sb[(kk + j) * kBN + col]) & 255u;
+#pragma unroll
+          for (int r = 0; r < kTM; ++r) {
+            if (r < rows_live) {
+              const uint4 av = *reinterpret_cast<const uint4*>(sa + (row0 + r) * C::kAStride + kk);
+              acc[r] += static_cast<uint32_t>(s_plane[((av.x & 255u) << 8) | bc[0]]) +
+                        static_cast<uint32_t>(s_plane[((av.y & 255u) << 8) | bc[1]]) +
+                        static_cast<uint32_t>(s_plane[((av.z & 255u) << 8) | bc[2]]) +
+                        static_cast<uint32_t>(s_plane[((av.w & 255u) << 8) | bc[3]]);
+            }
+          }
+        }
+        __syncthreads();  // buffer s & 1 is free again
+      }
+      // the zero-filled codes past ke each added plane[0]
+      const uint32_t dead = static_cast<uint32_t>(n_stages * kBK - (ke - kb));
+      const uint32_t p0 = s_plane[0];
+#pragma unroll
+      for (int r = 0; r < kTM; ++r) acc[r] -= dead * p0;
+    }
+
+    const int n = n0 + col;
+    const uint32_t base = static_cast<uint32_t>(ke - kb) * static_cast<uint32_t>(lo);
+#pragma unroll
+    for (int r = 0; r < kTM; ++r) {
+      const int m = m0 + row0 + r;
+      if (m >= M || n >= N) continue;
+      uint32_t* dst = reinterpret_cast<uint32_t*>(out) + static_cast<size_t>(m) * N + n;
+      if (splits > 1) {
+        atomicAdd(dst, acc[r] + base);
+      } else {
+        *dst = acc[r] + base;
+      }
+    }
+  }
+}
+
+template <int RG>
+int run_direct(const int32_t* a, const int32_t* b, const int32_t* table, int32_t* out,
+               int M, int K, int N, cudaStream_t stream) {
+  using C = DCfg<RG>;
+  static bool ready = false;
+  if (!ready) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        lut_direct_kernel<RG>, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ready = true;
+  }
+  const long tiles = static_cast<long>((M + C::kBM - 1) / C::kBM) * ((N + C::kBN - 1) / C::kBN);
+  const int slots = sm_count();  // one block an SM: the plane takes 128 KiB
+  const int chunk = split_depth(tiles, slots, K);
+  const int splits = (K + chunk - 1) / chunk;
+  if (splits > 1) {
+    cudaMemsetAsync(out, 0, static_cast<size_t>(M) * N * sizeof(int32_t), stream);
+  }
+  const int vec_a = K % 4 == 0 && reinterpret_cast<uintptr_t>(a) % 16 == 0;
+  const int vec_b = N % 4 == 0 && reinterpret_cast<uintptr_t>(b) % 16 == 0;
+  const long units = tiles * splits;
+  const int grid = static_cast<int>(std::min<long>(units, slots));
+  lut_direct_kernel<RG><<<grid, kDThreads, C::kSmem, stream>>>(
+      a, b, table, out, M, K, N, chunk, splits, vec_a, vec_b);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_direct(const int32_t* a, const int32_t* b, const int32_t* table,
+                  int32_t* out, int M, int K, int N, cudaStream_t stream) {
+  if (M == 0 || N == 0) return static_cast<int>(cudaGetLastError());
+  if (K == 0) {
+    cudaMemsetAsync(out, 0, static_cast<size_t>(M) * N * sizeof(int32_t), stream);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (M <= 8) return run_direct<1>(a, b, table, out, M, K, N, stream);
+  return run_direct<4>(a, b, table, out, M, K, N, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -547,6 +768,15 @@ int approx_matmul_w8(const void* a, const void* b, const void* lut, void* out,
   return launch<true>(static_cast<const int32_t*>(a), static_cast<const int32_t*>(b),
                       static_cast<const int32_t*>(lut), static_cast<int32_t*>(out),
                       M, K, N, static_cast<cudaStream_t>(stream));
+}
+
+// a (M, K), b (K, N) int32 codes in [0, 256); lut any (256, 256) int32
+// table, one pass a u16 plane of its entries' span; out (M, N).
+int approx_matmul_w8_direct(const void* a, const void* b, const void* lut, void* out,
+                            int M, int K, int N, void* stream) {
+  return launch_direct(static_cast<const int32_t*>(a), static_cast<const int32_t*>(b),
+                       static_cast<const int32_t*>(lut), static_cast<int32_t*>(out),
+                       M, K, N, static_cast<cudaStream_t>(stream));
 }
 
 const char* cuda_error_string(int err) {

@@ -22,7 +22,7 @@ dispatch mode, and the kernel route and the plain route count the same.
 from __future__ import annotations
 
 from contextlib import nullcontext
-from typing import Literal
+from typing import Literal, NamedTuple
 
 import numpy as np
 import torch
@@ -70,12 +70,32 @@ def template_eval(lits, sel, in_tt, exact_vals, *, backend: Backend = "auto"):
         return ref.template_eval(lits, sel, in_tt, exact_vals)
 
 
-def approx_matmul(a, b, lut, *, backend: Backend = "auto"):
-    """LUT matmul; see :func:`repro_torch.kernels.ref.approx_matmul`."""
+class RoutedLut(NamedTuple):
+    """A table, or a stack of them, with its form on the kernel route
+    (:func:`check_luts`'s answer: a bool for one table, a tuple along a
+    stack's leading axis), as :func:`route_luts` adopts it and the models
+    carry it to each layer's :func:`approx_matmul`."""
+
+    table: torch.Tensor
+    direct: bool | tuple[bool, ...]
+
+    def layer(self, i: int) -> "RoutedLut":
+        """Layer ``i``'s table with its form (the table itself if shared)."""
+        if self.table.ndim == 2:
+            return self
+        return RoutedLut(self.table[i], self.direct[i])
+
+
+def approx_matmul(a, b, lut, *, direct: bool | None = None,
+                  backend: Backend = "auto"):
+    """LUT matmul; see :func:`repro_torch.kernels.ref.approx_matmul`.  On
+    the kernel route a (256, 256) table goes to the direct kernel where
+    ``direct`` (its form from :func:`check_luts`), else to W8A8; without a
+    form it is refused."""
     with _cost(lambda: approx_matmul_work(a, b, lut), a):
         if use_kernel(a, backend):
             refuse_grad(b)
-            return _am.approx_matmul(a, b, lut)
+            return _am.approx_matmul(a, b, lut, direct=direct)
         return ref.approx_matmul(a, b, lut)
 
 
@@ -163,13 +183,28 @@ def template_eval_work(lits, sel, W: int, S: int):
     return float(W * (lit_ops + or_ops + P * 10 * (m + 1))), float(nbytes)
 
 
-def check_luts(luts: torch.Tensor, *, backend: Backend = "auto") -> None:
-    """Verify once, when a table or stack is adopted, what the kernels
-    take on trust per call: a table bound for the kernel holds
-    non-negative entries, an 8-bit one through its tile, and an 8-bit one
-    is composed (:func:`repro_torch.kernels.approx_matmul.check_tables`)."""
+def check_luts(luts: torch.Tensor, *, backend: Backend = "auto"):
+    """The form of each table in ``luts`` on the kernel route, decided
+    once, when a table or stack is adopted, so that no call reads a table
+    back (:func:`repro_torch.kernels.approx_matmul.check_tables`: ``None``
+    for (16, 16) tables, else whether each (256, 256) one goes to the
+    direct kernel); ``None`` on the plain route.  Any int32 table is
+    taken."""
     if use_kernel(luts, backend):
-        _am.check_tables(luts)
+        return _am.check_tables(luts)
+    return None
+
+
+def route_luts(luts, *, backend: Backend = "auto"):
+    """Adopt ``luts`` (a table, a stack, or a ``{bits: stack}`` dict of
+    them): each tensor with its forms (:func:`check_luts`) as a
+    :class:`RoutedLut`, or as it is where no form is needed ((16, 16)
+    tables, the plain route).  Reads the tables back once, here, so that
+    no call does."""
+    if isinstance(luts, dict):
+        return {b: route_luts(t, backend=backend) for b, t in luts.items()}
+    forms = check_luts(luts, backend=backend)
+    return luts if forms is None else RoutedLut(luts, forms)
 
 
 def launch_counters() -> tuple:
@@ -178,4 +213,4 @@ def launch_counters() -> tuple:
     calling their wrappers, so whoever replays one credits these counts
     (:class:`repro_torch.serving.engine.ServingEngine` does)."""
     return (_am.approx_matmul_w4, _am.approx_matmul_w8,
-            _fa.flash_attention, _te.template_eval)
+            _am.approx_matmul_w8_direct, _fa.flash_attention, _te.template_eval)

@@ -39,7 +39,7 @@ import torch
 
 from ..kernels import ops
 from ..parallel import axis_extent, fsdp_gather, shard
-from ..parallel.api import index_copy_, is_dtensor, on_shards, reshard
+from ..parallel.api import index_copy_, is_dtensor, on_shards, reshard, take
 from ..quant.int4 import approx_linear
 from .config import ModelConfig
 
@@ -756,7 +756,7 @@ def moe_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor, lut=None,
     valid = slot_c < group_sizes[:, None]
     src = src.clamp(max=T * K - 1)
     rows = (order // K)[src]                                  # (E, C) token ids
-    xs = flat[rows] * valid[..., None].to(flat.dtype)         # (E, C, D)
+    xs = take(flat, rows) * valid[..., None].to(flat.dtype)   # (E, C, D)
     # expert parallelism when E divides the data axis (the classic MoE
     # all-to-all appears at the gather/scatter boundary); otherwise the
     # capacity axis stays data-parallel and expert weights stay FSDP
@@ -778,7 +778,7 @@ def moe_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor, lut=None,
         0, order, torch.arange(T * K, device=dev))
     slot = inv - starts[flat_e]                               # (T*K,)
     kept = slot < C
-    picked = ys[flat_e, slot.clamp(max=C - 1)].float()        # (T*K, D)
+    picked = take(ys, flat_e, slot.clamp(max=C - 1)).float()  # (T*K, D)
     contrib = torch.where(kept[:, None], picked * gates.reshape(-1, 1), 0.0)
     # added site: the picks over "batch" alone before they fold to (T, K)
     contrib = shard(contrib, "batch", None).reshape(T, K, D).gather(

@@ -235,9 +235,11 @@ def forward_lm(
     so S_total = P + S.
     ``lut``: optional approximate-multiplier table — one (side, side)
     table shared by every layer, or a per-layer (n_layers, side, side)
-    stack; side = 16 (W4A4) or 256 (W8A8).  A table bound for the kernel
-    is checked once per call to hold non-negative entries (a W8A8 one
-    through its tile, and to be composed).
+    stack; side = 16 (W4A4) or 256 (W8A8).  A (256, 256) table bound
+    for the kernel is read once per call to decide its kernel (W8A8 where
+    it is composed from a tile, else the direct lookup,
+    :func:`repro_torch.kernels.ops.route_luts`), and each layer carries
+    its table's form to the launch.
     ``remat``: ``"none"``, ``"full"`` or ``"dots"``, applied to each layer
     (:func:`remat_layer`).
     """
@@ -259,13 +261,12 @@ def forward_lm(
     lut_ = None
     if cfg.approx_mlp and lut is not None:
         lut_ = to_device_luts(lut, dev)
-        ops.check_luts(lut_, backend=backend)
         check_lut_depth(cfg, lut_, backend=backend)
-    per_layer_lut = lut_ is not None and lut_.ndim == 3
+        lut_ = ops.route_luts(lut_, backend=backend)
 
     aux = torch.zeros((), dtype=torch.float32, device=dev)
     for i, lp in enumerate(params["layers"]):
-        lut_i = lut_[i] if per_layer_lut else lut_
+        lut_i = _layer_lut(lut_, i)
         x, aux_i = block(cfg, lp, x, layer_window(win, i), lut_i, backend)
         x = shard(x, "batch", None, None)
         if aux_i is not None:
@@ -388,9 +389,11 @@ def decode_step(
     shared by every layer, or a mixed-width dict ``{bits: (n_group, side,
     side)}`` with a ``width_map`` naming each layer's width: layer ``i``
     reads ``luts[width_map[i]]`` at its position among the layers of that
-    width.  The tables must be tensors on the params' device, adopted (and
-    a W8A8 stack checked for composition) by the caller, as
-    :class:`repro_torch.serving.engine.ServingEngine` does once per stack.
+    width.  The tables must be tensors on the params' device, adopted by
+    the caller (:func:`repro_torch.kernels.ops.route_luts`, which carries
+    each (256, 256) table's kernel with it, so that no step reads a table
+    back), as :class:`repro_torch.serving.engine.ServingEngine` does once
+    per stack.
     """
     layers = _decode_layers(cfg, luts, width_map, "decode_step")
     pos = L.decode_position(pos, params["embed"].device)
@@ -405,17 +408,27 @@ def decode_step(
     return _head(cfg, params, x)[:, 0], caches
 
 
+def _layer_lut(luts, i: int):
+    """Layer ``i``'s table from a stack or a shared table, with its form
+    where ``luts`` carries one (:class:`repro_torch.kernels.ops.RoutedLut`)."""
+    if isinstance(luts, ops.RoutedLut):
+        return luts.layer(i)
+    return luts if luts is None or luts.ndim == 2 else luts[i]
+
+
 def _decode_layers(cfg: ModelConfig, luts, width_map, caller: str) -> list:
     """Each layer's ``(window, table)`` for a decode step: the window is
     ``None`` (global) or an int, the table the layer's own from a stack, a
     shared table or a mixed-width dict (layer ``i`` reads
     ``luts[width_map[i]]`` at its position among the layers of that
-    width), or ``None`` without an approximate MLP."""
+    width), with its form where the stack carries one, or ``None``
+    without an approximate MLP."""
     _check_family(cfg)
     win = window_schedule(cfg)
     luts_ = luts if cfg.approx_mlp else None
     leaves = luts_.values() if isinstance(luts_, dict) else (luts_,)
-    if any(v is not None and not isinstance(v, torch.Tensor) for v in leaves):
+    if any(v is not None and not isinstance(v, (torch.Tensor, ops.RoutedLut))
+           for v in leaves):
         raise TypeError(f"{caller} luts must be tensors on the model's "
                         "device; the engine moves a stack there once")
     if isinstance(luts_, dict) and (width_map is None
@@ -427,11 +440,10 @@ def _decode_layers(cfg: ModelConfig, luts, width_map, caller: str) -> list:
     for i in range(cfg.n_layers):
         w = layer_window(win, i)
         if isinstance(luts_, dict):
-            lut_i = luts_[width_map[i]][width_map[:i].count(width_map[i])]
-        elif luts_ is not None:
-            lut_i = luts_[i] if luts_.ndim == 3 else luts_
+            bits = width_map[i]
+            lut_i = _layer_lut(luts_[bits], width_map[:i].count(bits))
         else:
-            lut_i = None
+            lut_i = _layer_lut(luts_, i)
         out.append((w, lut_i))
     return out
 

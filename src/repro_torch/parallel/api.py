@@ -243,6 +243,30 @@ def on_shards(fn, *args, out_like=None):
     return local_map(fn, out_placements=out, device_mesh=lead.device_mesh)(*args)
 
 
+def take(x, *index):
+    """``x[index]``: advanced indexing of ``x``'s leading dims by integer
+    tensors.  Under a mesh a DTensor ``x`` and its indices are replicated
+    first and the indexing runs on the whole local tensors, so that its
+    backward is a plain ``index_put`` on each rank: some versions of
+    DTensor have no working sharding rule for the ``index_put`` that the
+    backward of a gather from a sharded tensor is.  Replicating is what
+    that gather needs anyway, its index reaching every row.  Without a
+    context or a DTensor ``x``, just ``x[index]``."""
+    if current() is None:
+        return x[index]
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    if not isinstance(x, DTensor):
+        return x[index]
+    mesh = x.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    args = [t.redistribute(mesh, rep) if isinstance(t, DTensor) else t
+            for t in (x, *index)]
+    return local_map(lambda src, *idx: src[idx], out_placements=rep,
+                     device_mesh=mesh)(*args)
+
+
 def on_matmul_shards(fn, a, b):
     """``fn(a, b)`` for a product ``a (M, K) @ b (K, N)`` that a kernel
     computes, run on each rank's local shards under a mesh: ``K`` is

@@ -57,7 +57,7 @@ def dequantize(codes: torch.Tensor, scale: torch.Tensor,
 def approx_linear(
     x: torch.Tensor,     # (..., K) float
     w: torch.Tensor,     # (K, N) float
-    lut: torch.Tensor,   # (side, side) int32 approximate product table
+    lut,                 # (side, side) int32 table, or an ops.RoutedLut
     *,
     backend: ops.Backend = "auto",
 ) -> torch.Tensor:
@@ -67,8 +67,13 @@ def approx_linear(
 
     The weight is quantized on every call, as in the reference.  Under a
     mesh the table product runs on local shards
-    (:func:`repro_torch.parallel.api.on_matmul_shards`).
+    (:func:`repro_torch.parallel.api.on_matmul_shards`).  A
+    :class:`~repro_torch.kernels.ops.RoutedLut` carries the table's form
+    on the kernel route to the launch (a (256, 256) table needs one).
     """
+    direct = None
+    if isinstance(lut, ops.RoutedLut):
+        lut, direct = lut
     spec = width_from_lut(lut)
     lead = x.shape[:-1]
     K = x.shape[-1]
@@ -77,7 +82,8 @@ def approx_linear(
     wq, sw = quantize_intb(w, spec.bits, axis=0)      # (K, N), (1, N)
 
     raw = on_matmul_shards(
-        lambda a, b: ops.approx_matmul(a, b, lut, backend=backend), xq, wq).float()
+        lambda a, b: ops.approx_matmul(a, b, lut, direct=direct, backend=backend),
+        xq, wq).float()
     # exact correction of the biased-unsigned decomposition
     c = float(spec.bias)
     sum_a = xq.sum(dim=1, keepdim=True).float()   # (M, 1)

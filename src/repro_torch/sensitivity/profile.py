@@ -26,16 +26,14 @@ measured code path:
 
 On the card every forward runs the LUT matmul and flash kernels.  The
 8-bit probe is the exact 256x256 product with its low 8 bits dropped,
-which is not composed from a 16x16 tile, so the W8A8 kernel cannot take
-it: :func:`measure_profile` refuses it there with the kernel route's
-``ValueError`` before its first forward (on the CPU it runs, as in the
-reference).
+which is not composed from a 16x16 tile: its layer runs the direct
+lookup kernel, the composed layers the W8A8 kernel.
 
 CLI (writes the profile the serve launcher's ``--profile`` consumes; the
 card unless ``--device cpu``)::
 
     python -m repro_torch.sensitivity.profile --arch qwen3-4b --reduced \
-        --library runs/lib --widths 4 --out runs/lib/_profiles/qwen3-4b.json
+        --library runs/lib --widths 4,8 --out runs/lib/_profiles/qwen3-4b.json
 """
 
 from __future__ import annotations
@@ -51,7 +49,6 @@ from ..configs import get_config
 from ..device import resolve_device
 from ..kernels import ops
 from ..models import forward_fn, init_model
-from ..models.lm import to_device_luts
 from ..precision.widths import SUPPORTED_WIDTHS, exact_table, get_width
 
 __all__ = [
@@ -185,13 +182,15 @@ def default_profile_path(library, model: str) -> Path:
 # measurement
 # ---------------------------------------------------------------------------
 def model_eval_drift(cfg, params, batch, bits: int, *,
+                     backend: ops.Backend = "auto",
                      device: str | torch.device = "cuda"):
     """The one measured-drift evaluator: returns ``eval_drift(per_layer)``
     where ``per_layer[l]`` is layer ``l``'s ``(side, side)`` table
     (``None`` = exact), evaluated as mean |Δlogit| against the all-exact
     baseline at width ``bits``.  The baseline forward runs once here; each
     probe passes its per-layer stack to the same forward as an argument,
-    so the model is never rebuilt."""
+    so the model is never rebuilt.  ``backend="ref"`` runs every forward
+    on the plain route."""
     if not cfg.approx_mlp:
         raise ValueError("profiling routes MLP matmuls through LUTs; build "
                          "the config with .with_approx_mlp()")
@@ -203,7 +202,8 @@ def model_eval_drift(cfg, params, batch, bits: int, *,
 
     def logits(stack: np.ndarray) -> torch.Tensor:
         with torch.no_grad():
-            return fwd(cfg, params, batch, lut=stack, device=dev)[0]
+            return fwd(cfg, params, batch, lut=stack, backend=backend,
+                       device=dev)[0]
 
     base = logits(np.broadcast_to(exact, (cfg.n_layers, w.side, w.side)).copy())
 
@@ -218,27 +218,24 @@ def model_eval_drift(cfg, params, batch, bits: int, *,
 def measure_profile(cfg, params, batch, *, widths=SUPPORTED_WIDTHS,
                     drop: int | None = None, library=None,
                     meta: dict | None = None,
+                    backend: ops.Backend = "auto",
                     device: str | torch.device = "cuda"
                     ) -> SensitivityProfile:
     """Probe one layer at a time at every serving width and (optionally,
     with a library) measure the full per-(layer, operator) cost matrix of
     each width's frontier.  Deterministic for fixed (cfg, params, batch).
-
-    Every probe is checked against the kernel route before the first
-    forward: on the card the 8-bit probe, not composed from a tile,
-    raises the route's ``ValueError`` here."""
+    ``backend="ref"`` measures on the plain route."""
     from ..library.qos import measure_layer_costs, measure_sensitivities
 
     dev = resolve_device(device)
     probes = {bits: truncation_probe(bits, drop)
               for bits in sorted(int(b) for b in widths)}
-    for probe in probes.values():
-        ops.check_luts(to_device_luts(probe.lut, dev))
     sens: dict[int, np.ndarray] = {}
     probe_mae: dict[int, float] = {}
     costs: dict[int, tuple[list[str], np.ndarray]] = {}
     for bits, probe in probes.items():
-        ev = model_eval_drift(cfg, params, batch, bits, device=dev)
+        ev = model_eval_drift(cfg, params, batch, bits, backend=backend,
+                              device=dev)
         sens[bits] = measure_sensitivities(ev, cfg.n_layers, probe)
         probe_mae[bits] = probe.mae
         if library is not None:

@@ -27,6 +27,15 @@ the exact shadow stack -- is copied into the step's own stack buffer
 before the replays that read it, so no swap, class stack or shadow step
 changes an address the graph recorded.
 
+**Routes.**  Which kernel each layer's (256, 256) table goes to is
+decided when the engine adopts its first stack (``ops.check_luts``: W8A8
+for a table composed from a tile, the direct lookup for any other) and
+captured with the step.  A later stack -- a swap, a per-batch override, a
+class stack, the exact shadow stack -- may put any table on a layer
+routed to the direct kernel and only a composed table on the others; a
+stack that does not fit is refused with ``ValueError`` before anything
+is written or launched, and the step is never captured again.
+
 One ``run_batch`` serves up to ``batch`` requests: prefill walks the
 prompt through the same step, token by token, then greedy decode extends
 ``gen_len`` tokens.  Prefill and decode are timed separately, each
@@ -105,6 +114,26 @@ def _leaves(stack) -> tuple:
     return (stack,)
 
 
+def _table(t):
+    """The tables of a stack that ``ops.route_luts`` adopted, or ``t``."""
+    return t.table if isinstance(t, ops.RoutedLut) else t
+
+
+def _forms(routed):
+    """The routes a stack adopted by ``ops.route_luts`` carries, shaped as
+    it: ``None`` where it carries none."""
+    if isinstance(routed, dict):
+        return {b: _forms(t) for b, t in routed.items()}
+    return routed.direct if isinstance(routed, ops.RoutedLut) else None
+
+
+def _routes_onto(tables, routed):
+    """``tables`` (shaped as ``routed``) carrying ``routed``'s routes."""
+    if isinstance(tables, dict):
+        return {b: _routes_onto(t, routed[b]) for b, t in tables.items()}
+    return routed._replace(table=tables) if isinstance(routed, ops.RoutedLut) else tables
+
+
 def _owned(stack, device: torch.device):
     """A stack (or mixed-width dict) as int32 tensors on ``device`` in
     memory of their own: ``torch.as_tensor`` may share the caller's."""
@@ -145,7 +174,9 @@ class StaticStep:
     :func:`repro_torch.models.init_caches`: KV, MLA's compressed cache,
     or the SSM's and RWKV's recurrent state, all written in place),
     ``luts`` (the stack the step reads, a dict per width group for
-    a mixed map, or ``None``) and ``logits`` ``(B, V)`` float32.
+    a mixed map, or ``None``) and ``logits`` ``(B, V)`` float32.  A
+    stack given as ``ops.route_luts`` adopted it carries its routes, and
+    the step keeps them for its life.
 
     On a CUDA device the step is warmed up on a side stream and captured
     once as a CUDA graph; :meth:`replay` replays it and credits each
@@ -167,18 +198,20 @@ class StaticStep:
 
         def run() -> torch.Tensor:
             return step(cfg, params, self.caches, self.tok, self.pos,
-                        luts=self.luts, width_map=width_map,
+                        luts=self._routed, width_map=width_map,
                         backend=backend)[0]
 
         self._build(run, luts, (batch, cfg.vocab_size))
 
     def _build(self, run: Callable[[], torch.Tensor], luts,
                logits_shape: tuple[int, int]) -> None:
-        """Own a copy of ``luts``, then capture ``run`` (on a card) or
+        """Own a copy of ``luts``'s tables (``luts``, and ``_routed``:
+        them with ``luts``'s routes), then capture ``run`` (on a card) or
         keep it to run eagerly (on the CPU)."""
         self.luts = (None if luts is None else
-                     {b: t.clone() for b, t in luts.items()}
-                     if isinstance(luts, dict) else luts.clone())
+                     {b: _table(t).clone() for b, t in luts.items()}
+                     if isinstance(luts, dict) else _table(luts).clone())
+        self._routed = _routes_onto(self.luts, luts)
         self._saved = None          # cache copies for the shadow step
         self.replays = 0
         self.capture_s = 0.0
@@ -302,7 +335,7 @@ class PagedStaticStep(StaticStep):
 
         def run() -> torch.Tensor:
             return step(cfg, params, self.caches, self.tok, self.pos,
-                        self.active, self.tables, luts=self.luts,
+                        self.active, self.tables, luts=self._routed,
                         width_map=width_map, backend=backend)[0]
 
         self._build(run, luts, (slots, cfg.vocab_size))
@@ -432,8 +465,10 @@ class ServingEngine:
         else:
             self.width = None
             self.widths = ()
-        for t in _leaves(self._luts) if self._luts is not None else ():
-            ops.check_luts(t, backend=backend)
+        # each layer's route, fixed here for the step's life
+        self._routed = (None if self._luts is None
+                        else ops.route_luts(self._luts, backend=backend))
+        self._forms = _forms(self._routed)
         if self._luts is not None:
             check_lut_depth(cfg, self._luts, backend=backend)
 
@@ -459,7 +494,7 @@ class ServingEngine:
     def _new_step(self) -> StaticStep:
         return StaticStep(
             self.cfg, self.params, batch=self.batch, total=self.total,
-            luts=self._luts, width_map=self._width_map,
+            luts=self._routed, width_map=self._width_map,
             backend=self.backend, device=self.device)
 
     def _sync(self) -> None:
@@ -484,9 +519,25 @@ class ServingEngine:
             if t.shape != live.shape:
                 raise ValueError(f"stack shape {tuple(t.shape)} differs from "
                                  f"the live {tuple(live.shape)}")
-        for t in _leaves(new):
-            ops.check_luts(t, backend=self.backend)
+        self._check_routes(new)
         return new
+
+    def _check_routes(self, stack) -> None:
+        """Raise unless the routes fixed at construction take ``stack``: a
+        (256, 256) table not composed from a tile needs its layer routed
+        to the direct kernel, which takes any table."""
+        new = _forms(ops.route_luts(stack, backend=self.backend))
+        for bits, routes, forms in zip(self.widths, _leaves(self._forms),
+                                       _leaves(new)):
+            if routes is None:   # (16, 16) tables, or the plain route
+                continue
+            moved = [i for i, (r, f) in enumerate(zip(routes, forms)) if f and not r]
+            if moved:
+                raise ValueError(
+                    f"the {bits}-bit tables at {moved} of the stack are not "
+                    f"composed from a tile, but the captured step routes them "
+                    f"to the W8A8 kernel, which takes only composed tables; "
+                    f"build an engine on a stack that holds such a table there")
 
     # ------------------------------------------------------------------ swap
     def swap_plan(self, plan: LayerPlan, stack, *, reason: str = "manual",
@@ -506,8 +557,7 @@ class ServingEngine:
             return False
         new = to_device_luts(stack, self.device)
         validate_lut_stack(self._luts, new)
-        for t in _leaves(new):
-            ops.check_luts(t, backend=self.backend)
+        self._check_routes(new)
         if isinstance(new, dict):
             for bits, src in new.items():
                 self._luts[bits].copy_(src)
@@ -1024,7 +1074,7 @@ class ContinuousServingEngine(ServingEngine):
             self.cfg, self.params, slots=self.max_slots,
             n_pages=self.n_pages, page_size=self.page_size,
             table_entries=self.table_entries, total=self.total,
-            luts=self._luts, width_map=self._width_map,
+            luts=self._routed, width_map=self._width_map,
             backend=self.backend, device=self.device)
 
     def run_batch(self, requests, *, shadow=False, luts=None):

@@ -20,6 +20,7 @@ from repro_torch.core.arith import benchmark  # noqa: E402
 from repro_torch.core.circuits import Circuit, Op  # noqa: E402
 from repro_torch.core.synth import area  # noqa: E402
 from repro_torch.kernels import approx_matmul as am  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.library.compile import load_mul_frontier  # noqa: E402
 from repro_torch.library.store import OperatorSignature, OperatorStore  # noqa: E402
 from repro_torch.models import (decode_fn, decode_paged_fn, init_caches,  # noqa: E402
@@ -79,8 +80,9 @@ def _engine(cuda, library, bits):
 
 def _eager(eng, reqs, stack, caches=None):
     """The batch through ``decode_fn`` called directly, position by
-    position, on the kernel route: (tokens, last logits).  ``caches``:
-    staged ones to start from (zeroed ones by default)."""
+    position, on the kernel route, the stack adopted once
+    (``ops.route_luts``): (tokens, last logits).  ``caches``: staged ones
+    to start from (zeroed ones by default)."""
     cfg, dev = eng.cfg, eng.device
     step = decode_fn(cfg)
     if caches is None:
@@ -89,7 +91,7 @@ def _eager(eng, reqs, stack, caches=None):
     for i, r in enumerate(reqs):
         prompts[i, :len(r.tokens)] = r.tokens
     prompts = torch.from_numpy(prompts).to(dev)
-    luts = None if stack is None else torch.as_tensor(stack, device=dev)
+    luts = None if stack is None else ops.route_luts(torch.as_tensor(stack, device=dev))
     for t in range(PROMPT):
         logits, _ = step(cfg, eng.params, caches, prompts[:, t:t + 1], t, luts=luts)
     generated = []
@@ -167,6 +169,43 @@ def test_launch_counts_follow_the_replays(cuda, library):
     assert eng.static_step.launches_per_replay == {
         "approx_matmul_w4": 3 * eng.cfg.n_layers}
     assert am.approx_matmul_w4.launches - n == done * 3 * eng.cfg.n_layers
+
+
+@pytest.mark.cuda
+def test_a_swap_across_forms_keeps_the_one_capture(cuda, library):
+    """Each layer's kernel is fixed when the engine adopts its stack and
+    captured with the step.  On a W8A8 plan engine (every layer on the
+    W8A8 kernel) a swap or an override that puts the uncomposed 8-bit
+    probe on a layer raises ValueError before any write or launch; an
+    engine built on the probe routes that layer to the direct kernel,
+    whose replays equal the eager kernel route bit for bit on the probe
+    and on a composed table put there, with one capture."""
+    from repro_torch.sensitivity.profile import truncation_probe
+
+    eng, ladder, reqs = _engine(cuda, library, 8)
+    L, top = eng.cfg.n_layers, len(ladder) - 1
+    eng.run_batch(reqs)
+    probe = ladder.luts(0).copy()
+    probe[0] = truncation_probe(8).lut
+    live = eng._luts.clone()
+    counts = (am.approx_matmul_w8.launches, am.approx_matmul_w8_direct.launches)
+    with pytest.raises(ValueError, match="not composed"):
+        eng.swap_plan(ladder.plan(top), probe)
+    with pytest.raises(ValueError, match="not composed"):
+        eng.run_batch(reqs, luts=probe)
+    assert torch.equal(eng._luts, live) and eng.trace_count == 1
+    assert (am.approx_matmul_w8.launches, am.approx_matmul_w8_direct.launches) == counts
+
+    de = ServingEngine(eng.cfg, eng.params, batch=2, prompt_len=PROMPT,
+                       gen_len=GEN, luts=probe, device=cuda)
+    for stack in (None, ladder.luts(0)):   # the probe, then a composed table there
+        de.run_batch(reqs, luts=stack)
+        tokens, logits = _eager(de, reqs, probe if stack is None else stack)
+        assert np.array_equal(de.last_tokens, tokens)
+        assert torch.equal(de.static_step.logits, logits)
+    assert de.static_step.launches_per_replay == {
+        "approx_matmul_w8": 3 * (L - 1), "approx_matmul_w8_direct": 3}
+    assert de.trace_count == 1
 
 
 # ---------------------------------------------------------------------------

@@ -223,10 +223,16 @@ def test_torch_tile_twins_and_composition_check(rng):
     st = _t(stack)
     assert np.array_equal(am.extract_tile(st).numpy(), tiles)
     assert np.array_equal(am.tile_to_width(_t(tiles.astype(np.int32))).numpy(), stack)
-    am.check_composed(st)
+    assert am.is_composed(st).tolist() == [True, True, True]
+    assert am.check_tables(st) == (False, False, False)
     st[1, 17, 200] += 1
-    with pytest.raises(ValueError, match="not composed"):
-        am.check_composed(st)
+    assert am.is_composed(st).tolist() == [True, False, True]
+    # the uncomposed table goes to the direct kernel, the others stay
+    assert am.check_tables(st) == (False, True, False)
+    assert am.check_tables(st[1]) is True and am.check_tables(st[0]) is False
+    assert am.check_tables(_t(tiles.astype(np.int32))) is None
+    with pytest.raises(ValueError, match="256, 256"):
+        am.is_composed(_t(tiles.astype(np.int32)))
 
 
 def _table_with(rng, side, entry):
@@ -244,21 +250,156 @@ def _ref_equals_oracle(rng, side, lut):
                                             backend="ref").numpy(), want)
 
 
+def _spy_kernels(monkeypatch):
+    """Send int32 operands down the kernel route as CUDA tensors would,
+    and record which kernel wrapper each LUT matmul reaches: each spy
+    computes what its kernel computes (the tensor-core form for the two
+    tile kernels, the direct form's algebra for the direct one) and
+    launches nothing.  The plain version raises if the route reaches it."""
+    calls = []
+
+    def spy(name, form):
+        def kernel(a, b, lut):
+            calls.append(name)
+            if form == "direct":
+                return torch.from_numpy(_direct_form(a.numpy(), b.numpy(), lut.numpy(), 16))
+            table = lut.numpy() if lut.shape[-1] == 16 else am.extract_tile(lut).numpy()
+            got, _ = _tensor_core_form(a.numpy(), b.numpy(), table,
+                                       4 if lut.shape[-1] == 16 else 8, "b")
+            return got.to(torch.int32)
+        return kernel
+
+    def plain(*args, **kw):
+        raise AssertionError("the kernel route reached the plain version")
+
+    monkeypatch.setattr(ops, "use_kernel",
+                        lambda x, backend: backend == "auto" and x.dtype == torch.int32)
+    for name, form in (("approx_matmul_w4", "tile"), ("approx_matmul_w8", "tile"),
+                       ("approx_matmul_w8_direct", "direct")):
+        monkeypatch.setattr(am, name, spy(name, form))
+    monkeypatch.setattr(ops.ref, "approx_matmul", plain)
+    return calls
+
+
 @pytest.mark.parametrize("bad", [-1, -300])
 @pytest.mark.parametrize("side", [16, 256])
 def test_kernel_route_refuses_negative_tables(bad, side, rng, monkeypatch):
-    """The kernels take tables of non-negative products (tiles at W8A8):
-    check_luts refuses a negative entry on the kernel route, backend='ref'
-    takes it and computes what the JAX oracle does."""
+    """The kernels are exact modulo 2^32 for any int32 table, so the
+    kernel route refuses no negative entry: check_luts passes it (a
+    composed W8A8 table stays on the W8A8 kernel), the route's kernel
+    computes what the JAX oracle does, and backend='ref' does too."""
     lut = _table_with(rng, side, bad)
     stack = _t(np.stack([lut, lut]))
-    with pytest.raises(ValueError, match="negative"):
-        am.check_tables(stack)
-    monkeypatch.setattr(ops, "use_kernel", lambda x, backend: backend == "auto")
-    with pytest.raises(ValueError, match="negative"):
-        ops.check_luts(stack)
-    ops.check_luts(stack, backend="ref")
+    want_form = None if side == 16 else (False, False)
+    assert am.check_tables(stack) == want_form
     _ref_equals_oracle(rng, side, lut)
+    calls = _spy_kernels(monkeypatch)
+    assert ops.check_luts(stack) == want_form
+    assert ops.check_luts(stack, backend="ref") is None
+    a, b = _codes(rng, (5, 9), side), _codes(rng, (9, 4), side)
+    a[0, :], b[:, 0] = 3 if side == 16 else 0x53, 5 if side == 16 else 0x35
+    want = np.asarray(jref.approx_matmul(jnp.asarray(a), jnp.asarray(b),
+                                         jnp.asarray(lut)))
+    got = ops.approx_matmul(_t(a), _t(b), _t(lut),
+                            direct=None if side == 16 else want_form[0])
+    assert np.array_equal(got.numpy(), want)
+    assert calls == ["approx_matmul_w4" if side == 16 else "approx_matmul_w8"]
+
+
+# ---------------------------------------------------------------------------
+# the direct kernel's algebra (csrc/approx_matmul.cu, lut_direct_kernel), in
+# integers on the CPU: offsets from the table's least entry in u16 planes
+# ---------------------------------------------------------------------------
+def _direct_form(a, b, table, chunk):
+    """``sum_k LUT[a, b]`` as the direct kernel computes it: K split into
+    ranges of ``chunk`` codes (a multiple of the 16-deep stage), each
+    padded with zero codes to whole stages; per range, one pass a u16
+    plane of ``LUT - lo`` (two where the entries span 65,536 or more,
+    taken by Horner's rule), each pass's padding taking back its
+    plane[0], then ``live * lo``; the ranges added, every step modulo
+    2^32.  Returns int32."""
+    M, K = a.shape
+    N = b.shape[1]
+    lo = int(table.min())
+    off = (table.astype(np.int64) - lo) & 0xFFFFFFFF
+    n_planes = 2 if int(off.max()) > 0xFFFF else 1
+    out = np.zeros((M, N), np.uint64)
+    for kb in range(0, K, chunk):
+        ke = min(K, kb + chunk)
+        padded = -(-(ke - kb) // 16) * 16
+        ap = np.zeros((M, padded), np.int64)
+        bp = np.zeros((padded, N), np.int64)
+        ap[:, :ke - kb], bp[:ke - kb] = a[:, kb:ke], b[kb:ke]
+        acc = np.zeros((M, N), np.uint64)
+        for p in reversed(range(n_planes)):
+            plane = (off >> (16 * p)) & 0xFFFF
+            acc = (acc << np.uint64(16)) & np.uint64(0xFFFFFFFF)
+            sums = plane[ap[:, :, None], bp[None, :, :]].sum(axis=1).astype(np.uint64)
+            dead = np.uint64((padded - (ke - kb)) * int(plane[0, 0]))
+            acc = (acc + sums - dead) & np.uint64(0xFFFFFFFF)
+        base = np.uint64(((ke - kb) * lo) & 0xFFFFFFFF)
+        out = (out + acc + base) & np.uint64(0xFFFFFFFF)
+    return out.astype(np.uint32).view(np.int32)
+
+
+def _direct_table(rng, kind):
+    from repro_torch.precision.widths import exact_table
+
+    if kind == "probe":                    # the profiler's 8-bit probe
+        return ((exact_table("mul", 8) >> 8) << 8).astype(np.int32)
+    if kind == "exact":
+        return exact_table("mul", 8).astype(np.int32)
+    if kind == "composed":
+        return compose.tile_to_width(_codes(rng, (16, 16), 256)).astype(np.int32)
+    if kind == "u16":
+        return rng.integers(0, 65536, size=(256, 256)).astype(np.int32)
+    if kind == "span 65536":               # the least span that takes two planes
+        t = rng.integers(0, 65536, size=(256, 256)).astype(np.int32)
+        t[0, 0], t[255, 255] = -7, 65529
+        return t
+    if kind == "negative":
+        return rng.integers(-40_000, 20_000, size=(256, 256)).astype(np.int32)
+    return rng.integers(-2**31, 2**31, size=(256, 256)).astype(np.int32)  # int32
+
+
+@pytest.mark.parametrize("kind", ["probe", "exact", "composed", "u16",
+                                  "span 65536", "negative", "int32"])
+@pytest.mark.parametrize("M,K,N,chunk", [(37, 53, 29, 16), (37, 53, 29, 64),
+                                         (4, 96, 40, 32), (1, 64, 24, 64),
+                                         (9, 33, 17, 16)])
+def test_direct_form_matches_ref(kind, M, K, N, chunk, rng):
+    """The direct kernel's algebra, at ragged shapes and K split into
+    ranges or whole, gives the JAX oracle's int32 sum for any table:
+    random int32 and negative entries, the probe, composed tables."""
+    table = _direct_table(rng, kind)
+    a, b = _codes(rng, (M, K), 256), _codes(rng, (K, N), 256)
+    a[0, 0], b[0, 0] = 255, 255
+    got = _direct_form(a, b, table, chunk)
+    want = np.asarray(jref.approx_matmul(jnp.asarray(a), jnp.asarray(b),
+                                         jnp.asarray(table)))
+    assert np.array_equal(got, want)
+    assert torch.equal(torch.from_numpy(got), ref.approx_matmul(_t(a), _t(b), _t(table)))
+
+
+@pytest.mark.parametrize("kind", ["probe", "u16", "negative", "int32", "composed"])
+def test_route_sends_each_table_to_its_kernel(kind, rng, monkeypatch):
+    """check_luts names the direct kernel for every table that is not
+    composed; ops.approx_matmul with that form reaches it, never the
+    plain version, and gives the oracle's sum; without a form it reads
+    no table and raises before any kernel."""
+    table = _direct_table(rng, kind)
+    direct = kind != "composed"
+    calls = _spy_kernels(monkeypatch)
+    assert ops.check_luts(_t(table)) is direct
+    a, b = _codes(rng, (6, 40), 256), _codes(rng, (40, 7), 256)
+    want = np.asarray(jref.approx_matmul(jnp.asarray(a), jnp.asarray(b),
+                                         jnp.asarray(table)))
+    got = ops.approx_matmul(_t(a), _t(b), _t(table), direct=direct)
+    assert np.array_equal(got.numpy(), want)
+    monkeypatch.setattr(am, "is_composed", None)
+    with pytest.raises(ValueError, match="needs its form"):
+        ops.approx_matmul(_t(a), _t(b), _t(table))
+    assert calls == ["approx_matmul_w8_direct" if direct else "approx_matmul_w8"]
 
 
 @pytest.mark.parametrize("wide", [256, 375, 70_000])

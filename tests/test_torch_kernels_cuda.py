@@ -1,6 +1,7 @@
 """PyTorch port on a card: the hand-written kernels against their plain
 versions (bit-equal LUT matmuls, at tile edges, extreme tables, tables
-past a byte and the W8A8 overflow edge, and template_eval; flash attention
+past a byte and the W8A8 overflow edge, the direct kernel on any
+(256, 256) table, and template_eval; flash attention
 within 2e-5 in f32 and 2e-2 in bf16 at head dims 64, 128 and 256, causal
 or not, with windows, kv prefixes, ragged lengths and rows that see no
 key), and the tensor search through the kernel against the same search
@@ -51,7 +52,7 @@ def test_approx_matmul_kernel_on_card(cuda, M, K, N, side, rng):
     a, b = _codes(rng, (M, K), side), _codes(rng, (K, N), side)
     args = [_t(x).to(cuda) for x in (a, b, table)]
     before = (am.approx_matmul_w4.launches, am.approx_matmul_w8.launches)
-    got = ops.approx_matmul(*args)
+    got = ops.approx_matmul(*args, direct=ops.check_luts(args[2]))
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), ref.approx_matmul(_t(a), _t(b), _t(table)))
     after = (am.approx_matmul_w4.launches, am.approx_matmul_w8.launches)
@@ -71,7 +72,7 @@ def test_approx_matmul_kernel_at_gemma3_shapes(cuda, M, K, N, side, rng):
         table = compose.tile_to_width(_codes(rng, (16, 16), 256)).astype(np.int32)
     args = [_t(x).to(cuda) for x in (_codes(rng, (M, K), side),
                                       _codes(rng, (K, N), side), table)]
-    got = ops.approx_matmul(*args)
+    got = ops.approx_matmul(*args, direct=ops.check_luts(args[2]))
     torch.cuda.synchronize()
     assert torch.equal(got, ref.approx_matmul(*args))
 
@@ -93,7 +94,8 @@ def _table(rng, side, kind="random"):
 
 
 def _check_on_card(cuda, a, b, table):
-    got = ops.approx_matmul(*[_t(x).to(cuda) for x in (a, b, table)])
+    args = [_t(x).to(cuda) for x in (a, b, table)]
+    got = ops.approx_matmul(*args, direct=ops.check_luts(args[2]))
     torch.cuda.synchronize()
     want = ref.approx_matmul(_t(a), _t(b), _t(table))
     assert torch.equal(got.cpu(), want)
@@ -180,6 +182,68 @@ def test_approx_matmul_w8_enqueues_only_its_output(cuda, rng):
         am.approx_matmul_w8(a, b, lut)
     ops_run = {e.key for e in prof.key_averages() if e.key.startswith("aten::")}
     assert ops_run <= {"aten::empty"}, ops_run
+
+
+def _direct_table(rng, kind):
+    """A (256, 256) table for the direct kernel: the profiler's 8-bit
+    probe, random u16 entries, negative int32 ones (one plane: a span
+    below 65,536; two: any int32), or a composed one."""
+    from repro_torch.precision.widths import exact_table
+
+    if kind == "probe":
+        return ((exact_table("mul", 8) >> 8) << 8).astype(np.int32)
+    if kind == "u16":
+        return rng.integers(0, 65536, size=(256, 256)).astype(np.int32)
+    if kind == "negative":
+        return rng.integers(-30_000, 30_000, size=(256, 256)).astype(np.int32)
+    if kind == "int32":
+        return rng.integers(-2**31, 2**31, size=(256, 256)).astype(np.int32)
+    return _table(rng, 256)
+
+
+DIRECT_SHAPES = [(128, 2560, 9728), (128, 9728, 2560), (4, 2560, 9728),
+                 (1, 64, 40), (8, 300, 200), (9, 53, 129), (37, 53, 29),
+                 (130, 257, 64), (257, 300, 129)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["probe", "u16", "negative", "int32", "composed"])
+@pytest.mark.parametrize("M,K,N", DIRECT_SHAPES)
+def test_approx_matmul_direct_kernel_on_card(cuda, kind, M, K, N, rng):
+    """The direct kernel bit-equal to the plain version (on the card) for
+    any (256, 256) table, at the profiler's shapes (B=4 x S=32 rows of
+    qwen3-4b's w1/w3 and w2), decode's and ragged ones on both sides of
+    its 8- and 32-row tiles; the route reaches it for every table but a
+    composed one, and counts one launch."""
+    table = _direct_table(rng, kind)
+    args = [_t(x).to(cuda) for x in (_codes(rng, (M, K), 256),
+                                      _codes(rng, (K, N), 256), table)]
+    want = ref.approx_matmul(*args)
+    got = am.approx_matmul_w8_direct(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    direct = ops.check_luts(args[2])
+    assert direct is (kind != "composed")
+    before = (am.approx_matmul_w8.launches, am.approx_matmul_w8_direct.launches)
+    got = ops.approx_matmul(*args, direct=direct)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    after = (am.approx_matmul_w8.launches, am.approx_matmul_w8_direct.launches)
+    assert after == (before[0] + (not direct), before[1] + direct)
+
+
+@pytest.mark.cuda
+def test_approx_matmul_direct_kernel_refuses_past_max_k(cuda, rng):
+    """The direct kernel keeps W8A8's overflow-free depth, as the
+    wrapper's check for every width does: refused before a launch."""
+    from repro_torch.precision.widths import get_width
+
+    K = get_width(8).max_k + 1
+    a, b = (_t(_codes(rng, s, 256)).to(cuda) for s in ((2, K), (K, 3)))
+    before = am.approx_matmul_w8_direct.launches
+    with pytest.raises(ValueError, match="overflow-free"):
+        am.approx_matmul_w8_direct(a, b, _t(_direct_table(rng, "probe")).to(cuda))
+    assert am.approx_matmul_w8_direct.launches == before
 
 
 # (B, H, Hkv, Lq, Lk, D, causal, window)

@@ -7,8 +7,9 @@ agree within 4e-5 absolute -- twice the 2e-5 logit tolerance of
 tests/test_torch_system.py -- the operator keys are equal, ``costs_for``
 prices equal profiles equally, a profile written by either side loads on
 the other, and both CLIs write equal documents.  On the card the 8-bit
-probe, which is not composed from a tile, is refused before any forward;
-here that order is held by routing the check to the kernel route's.
+probe, which is not composed from a tile, runs the direct lookup kernel
+on its layer and the W8A8 kernel on the others; here the kernel route's
+choice is held by spies on the kernel wrappers, which launch nothing.
 """
 
 import dataclasses
@@ -193,33 +194,100 @@ def test_both_clis_write_equal_documents(model, mixed_library, tmp_path,
         profile.main(["--reduced", "--device", "cpu"])
 
 
+def _spy_lut_kernels(monkeypatch):
+    """Send the LUT matmuls down the kernel route, as CUDA tensors would
+    (flash keeps the plain route), and record the kernel wrapper each
+    reaches, one name a call; each spy computes its kernel's sum with
+    the plain version, which the route itself never reaches."""
+    from repro_torch.kernels import approx_matmul as am
+
+    calls, plain = [], ops.ref.approx_matmul
+
+    def spy(name):
+        def kernel(a, b, lut):
+            calls.append(name)
+            return plain(a, b, lut)
+        return kernel
+
+    def refuse(*args, **kw):
+        raise AssertionError("the kernel route reached the plain version")
+
+    monkeypatch.setattr(ops, "use_kernel",
+                        lambda x, backend: backend == "auto" and x.dtype == torch.int32)
+    for name in ("approx_matmul_w4", "approx_matmul_w8", "approx_matmul_w8_direct"):
+        monkeypatch.setattr(am, name, spy(name))
+    monkeypatch.setattr(ops.ref, "approx_matmul", refuse)
+    return calls
+
+
 def test_w8_probe_refused_before_any_forward(model, monkeypatch):
-    """The kernel route refuses the uncomposed 8-bit probe; the profiler
-    checks every probe before its first forward (here the check is routed
-    to the kernel route's, as a CUDA tensor would be)."""
+    """The kernel route takes the uncomposed 8-bit probe: its check passes,
+    and measure_profile(widths=(4, 8)) runs every forward on the kernel
+    route and equals the reference's sens and probe_mae.  Each width-8
+    probe forward sends the probed layer's three products to the direct
+    kernel and every other layer's to W8A8; no call reaches the plain
+    version."""
+    cj, params, ct, pt, tokens = model
+    L = ct.n_layers
+    probe = profile.truncation_probe(8)
+    assert ops.check_luts(torch.from_numpy(probe.lut)) is None   # the plain route
+    calls = _spy_lut_kernels(monkeypatch)
+    assert ops.check_luts(torch.from_numpy(probe.lut)) is True
+    got = profile.measure_profile(ct, pt, {"tokens": tokens}, widths=(4, 8),
+                                  device="cpu")
+    want = jprofile.measure_profile(cj, params, {"tokens": jnp.asarray(tokens)},
+                                    widths=(4, 8))
+    same_profiles(got, want)
+    w4 = ["approx_matmul_w4"] * (3 * L * (1 + L))
+    assert calls[:len(w4)] == w4
+    w8 = calls[len(w4):]
+    assert len(w8) == 3 * L * (1 + L)
+    forwards = [w8[3 * L * f:3 * L * (f + 1)] for f in range(1 + L)]
+    assert forwards[0] == ["approx_matmul_w8"] * (3 * L)   # the exact baseline
+    for layer, fwd in enumerate(forwards[1:]):
+        want_calls = ["approx_matmul_w8"] * (3 * L)
+        want_calls[3 * layer:3 * layer + 3] = ["approx_matmul_w8_direct"] * 3
+        assert fwd == want_calls
+
+
+def test_forms_are_read_once_and_carried_to_each_layer(model, monkeypatch):
+    """A stack with one uncomposed table among composed ones: the forward
+    reads the stack once (check_luts) and each layer's products reach its
+    own kernel, the uncomposed layer's the direct one; the decode step
+    takes the forms with the stack its caller adopted (ops.route_luts)
+    and reads no table at all."""
+    from repro_torch.kernels import approx_matmul as am
+    from repro_torch.models import forward_fn
+    from repro_torch.models.lm import decode_step, init_decode_caches
+    from repro_torch.precision.widths import exact_table
+
     _, _, ct, pt, tokens = model
-    forwards = []
-    real = profile.forward_fn
+    L = ct.n_layers
+    ct8 = ct.with_approx_mlp(8)
+    stack = np.broadcast_to(exact_table("mul", 8).astype(np.int32), (L, 256, 256)).copy()
+    odd = L // 2
+    stack[odd] = profile.truncation_probe(8).lut
+    calls = _spy_lut_kernels(monkeypatch)
+    reads = []
+    is_composed = am.is_composed
+    monkeypatch.setattr(am, "is_composed", lambda t: reads.append(t.shape) or is_composed(t))
+    want_calls = ["approx_matmul_w8"] * (3 * L)
+    want_calls[3 * odd:3 * odd + 3] = ["approx_matmul_w8_direct"] * 3
 
-    def counting_forward_fn(cfg):
-        fwd = real(cfg)
-
-        def wrapped(*a, **kw):
-            forwards.append(kw["lut"].shape)
-            return fwd(*a, **kw)
-        return wrapped
-
-    monkeypatch.setattr(profile, "forward_fn", counting_forward_fn)
-    use_kernel = ops.use_kernel
-    monkeypatch.setattr(ops, "use_kernel", lambda x, backend: backend == "auto")
-    with pytest.raises(ValueError, match="not composed from a 16x16 tile"):
-        profile.measure_profile(ct, pt, {"tokens": tokens}, widths=(4, 8),
-                                device="cpu")
-    assert forwards == []
-    # the plain route, which CPU tensors take, runs it, as the reference's
-    # CPU route does
-    monkeypatch.setattr(ops, "use_kernel", use_kernel)
-    prof = profile.measure_profile(ct, pt, {"tokens": tokens}, widths=(8,),
-                                   device="cpu")
-    assert forwards == [(ct.n_layers, 256, 256)] * (1 + ct.n_layers)
-    assert (prof.sens[8] > 0).all()
+    with torch.no_grad():
+        logits = forward_fn(ct8)(ct8, pt, {"tokens": tokens}, lut=stack, device="cpu")[0]
+    assert reads == [(L, 256, 256)] and calls == want_calls
+    routed = ops.route_luts(torch.from_numpy(stack))
+    assert routed.direct == tuple(i == odd for i in range(L))
+    calls.clear()
+    reads.clear()
+    caches = init_decode_caches(ct8, 2, 4, device="cpu")
+    with torch.no_grad():
+        step = decode_step(ct8, pt, caches, torch.from_numpy(tokens[:, :1]), 0,
+                           luts=routed)[0]
+    assert reads == [] and calls == want_calls
+    monkeypatch.undo()
+    with torch.no_grad():
+        plain = forward_fn(ct8)(ct8, pt, {"tokens": tokens}, lut=stack,
+                                backend="ref", device="cpu")[0]
+    assert torch.equal(logits, plain) and torch.isfinite(step).all()

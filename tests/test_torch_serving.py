@@ -355,3 +355,57 @@ def test_step_buffers_keep_their_addresses(two_op_library):
     assert np.array_equal(pe.last_tokens, tokens)
     assert _addresses(pe) == ptrs and pe.trace_count == 1
     assert pe.static_step.replays == 6 * (PROMPT + GEN) + 3   # 3 shadow steps
+
+
+def test_routes_are_fixed_when_the_engine_adopts_its_stack(two_op_library,
+                                                           monkeypatch):
+    """On the kernel route (spies on the kernel wrappers, as CUDA tensors
+    would reach them; nothing launches) each layer's kernel is decided
+    when the engine adopts its first stack and captured with the step.  A
+    W8A8 plan engine routes every layer to the W8A8 kernel, so a swap or
+    an override that puts the uncomposed 8-bit probe on a layer is
+    refused before anything is written; an engine built on the probe
+    routes that layer to the direct kernel, which then serves a composed
+    table there exactly, with the one step built once."""
+    from test_torch_profile import _spy_lut_kernels
+
+    cj, ct, params, pt = _pair_models(8)
+    L = ct.n_layers
+    compiled, exact_area, _ = tload_mul_frontier(two_op_library, 8)
+    ladder = PlanLadder.build(compiled, L, exact_area=exact_area, levels=4)
+    top = len(ladder) - 1
+    probe_stack = ladder.luts(0).copy()
+    probe_stack[0] = port_profile.truncation_probe(8).lut
+    reqs = _requests()
+    kw = dict(batch=2, prompt_len=PROMPT, gen_len=GEN, device="cpu")
+    calls = _spy_lut_kernels(monkeypatch)
+
+    pe = ServingEngine(ct, pt, plan=ladder.plan(0), compiled=compiled,
+                       exact_area=exact_area, **kw)
+    assert pe._forms == (False,) * L
+    pe.run_batch(reqs)
+    first = pe.last_tokens
+    live = pe._luts.clone()
+    with pytest.raises(ValueError, match="not composed"):
+        pe.swap_plan(ladder.plan(top), probe_stack)
+    with pytest.raises(ValueError, match="not composed"):
+        pe.run_batch(reqs, luts=probe_stack)
+    assert torch.equal(pe._luts, live) and pe.plan.plan_id == ladder.plan(0).plan_id
+    assert set(calls) == {"approx_matmul_w8"} and pe.trace_count == 1
+
+    calls.clear()
+    de = ServingEngine(ct, pt, luts=probe_stack, **kw)
+    assert de._forms == (True,) + (False,) * (L - 1)
+    de.run_batch(reqs, luts=ladder.luts(0))   # a composed table on the direct layer
+    assert np.array_equal(de.last_tokens, first)
+    steps = PROMPT + GEN   # one replay a prompt token and a generated one
+    per_step = ["approx_matmul_w8_direct"] * 3 + ["approx_matmul_w8"] * (3 * (L - 1))
+    assert calls == per_step * steps
+    de.run_batch(reqs)
+    probe_tokens = de.last_tokens
+    assert de.trace_count == 1
+    monkeypatch.undo()
+    plain = ServingEngine(ct, pt, luts=probe_stack, backend="ref", **kw)
+    assert plain._forms is None
+    plain.run_batch(reqs)
+    assert np.array_equal(probe_tokens, plain.last_tokens)

@@ -6,6 +6,7 @@ that two versions can be compared in turns in one call on one card:
     python3 tools/time_kernel.py template_eval path/to/checkout/src
     python3 tools/time_kernel.py search path/to/checkout/src [REPS]
     python3 tools/time_kernel.py ablations path/to/checkout/src
+    python3 tools/time_kernel.py lut path/to/checkout/src
 
 The ``repro_torch`` package is imported from the given ``src`` directory
 (one process per checkout).  Prints one JSON line per shape or run:
@@ -27,7 +28,12 @@ The ``repro_torch`` package is imported from the given ``src`` directory
   choice undone by a text substitution in that checkout's source), each
   built by ``nvcc`` into ``build/ablations/`` and called through its C
   entry point, four rounds in alternating order, each checked against
-  the plain version.
+  the plain version;
+- ``lut``: the LUT matmul kernels, a call (CUDA events over 50 calls) and
+  whether it is bit-equal to that checkout's plain version: W4A4 and
+  W8A8 (a composed table) at ``LUT_SHAPES``, and the direct kernel on the
+  profiler's 8-bit probe at ``chip_smoke.DIRECT_SHAPES`` where the
+  checkout has it.
 
 Needs a CUDA card.
 """
@@ -43,6 +49,9 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402
 
 TE_SHAPES = [chip_smoke.TE_LARGE, ("mul_i8", 16, 4096), ("mul_i4", 8, 512)]
+# the LUT matmuls at the kernels line's rows, the profiler's and a forward's
+LUT_SHAPES = {"approx_matmul_w4": [(8, 2560, 9728), (128, 2560, 9728), (1024, 2560, 9728)],
+              "approx_matmul_w8": [(4, 2560, 9728), (128, 2560, 9728), (1024, 2560, 9728)]}
 _L8 = "? launch<8, {}>(l, se, t, e, wo, so, s, grid, smem, dev, st)"
 _L32 = "? launch<32, {}>(l, se, t, e, wo, so, s, grid, smem, dev, st)"
 _GROUPS = ("s.groups = n <= 8 ? 2 : 4 * s.kw;", "s.groups = 4 * s.kw;")
@@ -180,6 +189,40 @@ def time_ablations(torch, src: str) -> None:
             print(json.dumps(row), flush=True)
 
 
+def time_lut(torch, src: str) -> None:
+    import numpy as np
+
+    from repro_torch.kernels import approx_matmul as am
+    from repro_torch.kernels import ref
+    from repro_torch.precision.compose import tile_to_width
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def codes(shape, side):
+        return torch.randint(0, side, shape, generator=gen, device="cuda",
+                             dtype=torch.int32)
+
+    tables = {"approx_matmul_w4": codes((16, 16), 226),
+              "approx_matmul_w8": torch.as_tensor(
+                  tile_to_width(codes((16, 16), 256).cpu().numpy()).astype(np.int32),
+                  device="cuda")}
+    shapes = dict(LUT_SHAPES)
+    if hasattr(am, "approx_matmul_w8_direct"):
+        exact = np.arange(256)[:, None] * np.arange(256)[None, :]
+        tables["approx_matmul_w8_direct"] = torch.as_tensor(
+            ((exact >> 8) << 8).astype(np.int32), device="cuda")
+        shapes["approx_matmul_w8_direct"] = chip_smoke.DIRECT_SHAPES
+    for name, table in tables.items():
+        kernel, side = getattr(am, name), table.shape[-1]
+        for M, K, N in shapes[name]:
+            a, b = codes((M, K), side), codes((K, N), side)
+            print(json.dumps({
+                "src": src, "name": name, "shape": [M, K, N],
+                "ms": chip_smoke.time_ms(torch, lambda: kernel(a, b, table), iters=50),
+                "bit_equal": torch.equal(kernel(a, b, table),
+                                         ref.approx_matmul(a, b, table))}), flush=True)
+
+
 def main(what: str, src: str, reps: int = 10) -> int:
     import torch
 
@@ -193,6 +236,8 @@ def main(what: str, src: str, reps: int = 10) -> int:
         time_template_eval(torch, src)
     elif what == "ablations":
         time_ablations(torch, src)
+    elif what == "lut":
+        time_lut(torch, src)
     else:
         time_search(torch, src, reps)
     return 0
@@ -200,6 +245,6 @@ def main(what: str, src: str, reps: int = 10) -> int:
 
 if __name__ == "__main__":
     if len(sys.argv) not in (3, 4) or sys.argv[1] not in (
-            "flash", "template_eval", "search", "ablations"):
+            "flash", "template_eval", "search", "ablations", "lut"):
         sys.exit(__doc__)
     sys.exit(main(sys.argv[1], sys.argv[2], *[int(x) for x in sys.argv[3:]]))
