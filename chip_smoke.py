@@ -128,7 +128,12 @@ failing the run on any mismatch:
    seeing no card, qwen3-4b at full width on a fake world (train, prefill
    and decode on 16x16, long_500k's skip record, the 2x16x16 train step)
    and the MoE train steps of mixtral-8x7b and deepseek-v2-lite-16b on
-   16x16, each exiting 0;
+   16x16, each exiting 0, with its temporary and argument bytes a device
+   against the card's 80 GB; with them the hill-climb (``[hillclimb]``
+   lines): ``python -m repro_torch.experiments.hillclimb --step TAG``, one
+   process a step, its nine iterations at full width, each ``ok``, and
+   each pair's Pareto iterations and fastest
+   (``repro_torch.experiments.hillclimb.picks``);
 12. print the kernels line (launches on the main path, deviations, times,
    bounds), where a decode step's time goes, the card's name and power
    limit, and a last line of JSON.
@@ -3882,23 +3887,34 @@ CARD_BYTES = 80e9          # the H100's HBM
 
 def phase_dryrun(results: dict) -> None:
     """``python -m repro_torch.launch.dryrun`` for each cell of
-    ``DRYRUN_CELLS`` as subprocesses, all started together and each
-    checked for exit code 0: qwen3-4b at full width on a fake 16x16 world
-    for train, prefill and decode, ``long_500k``'s skip record, the
-    2x16x16 train step without the roofline, and the MoE train steps of
-    mixtral-8x7b and deepseek-v2-lite-16b on 16x16.  The subprocesses see no
-    card (``CUDA_VISIBLE_DEVICES`` empty): the dry-run runs on meta
-    tensors by design."""
+    ``DRYRUN_CELLS`` and ``python -m repro_torch.experiments.hillclimb
+    --step TAG`` for each iteration of the hill-climb, as subprocesses,
+    all started together and each checked for exit code 0: qwen3-4b at
+    full width on a fake 16x16 world for train, prefill and decode,
+    ``long_500k``'s skip record, the 2x16x16 train step without the
+    roofline, and the MoE train steps of mixtral-8x7b and
+    deepseek-v2-lite-16b on 16x16; then the hill-climb's nine ``train_4k``
+    iterations of deepseek-v2-lite-16b, mixtral-8x7b and
+    command-r-plus-104b.  The subprocesses see no card
+    (``CUDA_VISIBLE_DEVICES`` empty): the dry-run runs on meta tensors by
+    design."""
     import os
 
+    from repro_torch.experiments.hillclimb import STEPS, add_record, picks
+
     out_dir = ROOT / "build" / "dryrun"
-    shutil.rmtree(out_dir, ignore_errors=True)
+    perf_dir = ROOT / "build" / "perf_torch"
+    for d in (out_dir, perf_dir):
+        shutil.rmtree(d, ignore_errors=True)
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": ""}
+    commands = ([["-m", "repro_torch.launch.dryrun", *cell, "--out", str(out_dir)]
+                 for cell in DRYRUN_CELLS]
+                + [["-m", "repro_torch.experiments.hillclimb", "--step", tag,
+                    "--out", str(perf_dir)] for _, _, tag, _ in STEPS])
     t0 = time.perf_counter()
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", *cell, "--out", str(out_dir)],
-        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for cell in DRYRUN_CELLS]
+    procs = [subprocess.Popen([sys.executable, *cmd], cwd=ROOT, env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for cmd in commands]
     try:
         outs = [p.communicate(timeout=DRYRUN_TIMEOUT_S) for p in procs]
     finally:
@@ -3907,10 +3923,11 @@ def phase_dryrun(results: dict) -> None:
                 p.kill()
                 p.wait()
     secs = time.perf_counter() - t0
-    cells = []
-    for cell, p, (stdout, stderr) in zip(DRYRUN_CELLS, procs, outs):
-        require(p.returncode == 0, f"dryrun {' '.join(cell)} exited {p.returncode}: "
+    for cmd, p, (stdout, stderr) in zip(commands, procs, outs):
+        require(p.returncode == 0, f"{' '.join(cmd)} exited {p.returncode}: "
                                    f"{stdout[-400:]} {stderr[-800:]}")
+    cells = []
+    for cell in DRYRUN_CELLS:
         mesh = "2x16x16" if "--multi-pod" in cell else "16x16"
         rec = json.loads((out_dir / f"{cell[1]}__{cell[3]}__{mesh}.json").read_text())
         cells.append(rec)
@@ -3921,17 +3938,34 @@ def phase_dryrun(results: dict) -> None:
                 f"({rec['reason']})")
             continue
         require(rec["status"] == "ok", f"dryrun {' '.join(cell)}: {rec}")
-        arg = rec["memory_analysis"]["argument_size_in_bytes"]
+        mem = rec["memory_analysis"]
         log(f"[dryrun] {rec['arch']} {rec['shape']} {mesh}: ok, {rec['chips']} chips; "
             f"per device {rec['hlo_flops']:.4g} FLOP, {rec['hlo_bytes']:.4g} B, "
             f"{rec['wire_bytes']:.4g} wire B, collectives {rec['collectives']}; "
             f"bottleneck {rec['bottleneck']}, roofline_fraction "
             f"{rec['roofline_fraction']:.4f} (modelled from counts and data-sheet "
-            f"peaks); arguments {arg / 1e9:.2f} GB a device of the card's "
+            f"peaks); temp {mem['temp_size_in_bytes'] / 1e9:.2f} GB and arguments "
+            f"{mem['argument_size_in_bytes'] / 1e9:.2f} GB a device of the card's "
             f"{CARD_BYTES / 1e9:.0f} GB; {rec['wall_s']:.1f} s on the host")
-    log(f"[dryrun] {len(cells)} cells in {secs:.1f} s, as {len(procs)} processes "
-        f"started together")
+    log(f"[dryrun] {len(cells)} cells and {len(STEPS)} hill-climb steps in {secs:.1f} s, "
+        f"as {len(procs)} processes started together")
     results["dryrun"] = {"seconds": secs, "cells": cells}
+
+    by_pair: dict = {}
+    for arch, shape, tag, _ in STEPS:
+        rec = json.loads((perf_dir / f"{arch}__{shape}__16x16__{tag}.json").read_text())
+        require(rec["status"] == "ok", f"hillclimb {tag}: {rec}")
+        add_record(by_pair, arch, shape, tag, rec)
+        log(f"[hillclimb] {arch} {shape} {tag}: ok; modelled compute "
+            f"{rec['t_compute']:.4g} s, memory {rec['t_memory']:.4g} s, collective "
+            f"{rec['t_collective']:.4g} s, roofline_fraction "
+            f"{rec['roofline_fraction']:.4f}; temp "
+            f"{rec['memory_analysis']['temp_size_in_bytes'] / 1e9:.2f} GB a device; "
+            f"{rec['wall_s']:.1f} s on the host")
+    chosen = picks(by_pair, say=lambda line: log(f"[hillclimb] {line} (modelled)"))
+    picks_by_arch = {arch: pick for (arch, _), pick in chosen.items()}
+    results["hillclimb"] = {"records": [r for o in by_pair.values() for r in o.results],
+                            "picks": picks_by_arch}
 
 
 ROOFLINE_DECODE = {"rows": 8, "max_len": 512, "pos": 256}

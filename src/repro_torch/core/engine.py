@@ -27,6 +27,7 @@ import hashlib
 import math
 import time
 from dataclasses import dataclass, field
+from typing import Callable, Sequence
 
 import numpy as np
 
@@ -118,7 +119,13 @@ class Candidate:
 
 @dataclass
 class SearchOutcome:
-    """The search report."""
+    """The search report.
+
+    ``results`` usually holds :class:`Candidate`\\ s; engine-agnostic
+    consumers (the perf hill-climb, :mod:`repro_torch.experiments.hillclimb`)
+    may hold other record types and use the generic :meth:`pareto` /
+    :meth:`min_by` selectors instead of :attr:`best`.
+    """
 
     engine: str
     benchmark: str
@@ -135,9 +142,18 @@ class SearchOutcome:
     @property
     def best(self):
         """Smallest-area candidate, or ``None``."""
-        if not self.results:
+        if not self.results or not hasattr(self.results[0], "area"):
             return None
         return min(self.results, key=lambda r: r.area)
+
+    def min_by(self, objective: Callable) -> object | None:
+        return min(self.results, key=objective) if self.results else None
+
+    def pareto(self, objectives: Sequence[Callable]) -> list:
+        """Non-dominated results under ``objectives`` (minimization)."""
+        from ..library.pareto import pareto_front
+
+        return pareto_front(self.results, objectives)
 
 
 def verify_circuit(circuit: Circuit, exact_values: np.ndarray, et: float,

@@ -14,7 +14,11 @@ dispatches instead, per device:
   ``bytes accessed`` sums them (views move none);
 - one :class:`CollectiveStats` entry per collective, at its local payload
   and the size of the group it runs over; an all-to-all that DTensor
-  asks for counts as one, though a CPU group runs it as a gather.
+  asks for counts as one, though a CPU group runs it as a gather;
+- the peak of the local bytes the ops allocate and hold at once
+  (:meth:`CostCounter.temp_bytes`), the counterpart of XLA's
+  ``temp_size_in_bytes``: each new storage an op returns counts from that
+  op until the storage dies.
 
 Under DTensor the counter sees the local ops each rank runs, so the counts
 are per device, as the reference's SPMD counts are.  The kernels report
@@ -33,6 +37,7 @@ peaks in :mod:`repro_torch.launch.mesh`, not measurements):
 
 from __future__ import annotations
 
+import weakref
 from dataclasses import dataclass, field
 
 import torch
@@ -103,6 +108,7 @@ class CostCounter(TorchDispatchMode):
         self.bytes = 0.0
         self.collectives = CollectiveStats()
         self.log: list[str] | None = [] if log_ops else None
+        self.memory = _LiveBytes()
         self._hidden = 0       # > 0: ops are not counted (a kernel's scope)
         self._quiet = 0        # > 0: neither ops nor collectives are
         self._saved = None
@@ -125,6 +131,7 @@ class CostCounter(TorchDispatchMode):
 
         ops.COUNTER, placement_types.shard_dim_alltoall = self._saved
         del DTensor._op_dispatcher.sharding_propagator._propagate_tensor_meta_non_cached
+        self.memory.close()
         return super().__exit__(*exc)
 
     def _hide(self, inner):
@@ -152,6 +159,14 @@ class CostCounter(TorchDispatchMode):
         if self.log is not None:
             self.log.append(f"{op} payload={payload} group={group}")
 
+    def temp_bytes(self, outputs=()) -> int:
+        """The peak of the local bytes held at once by storages that the
+        counted ops allocated, less those of
+        ``outputs``: arguments are never counted, and outputs are the
+        record's ``output_size_in_bytes``.  A DTensor counts its local
+        shard only, as the counter sees only local ops."""
+        return self.memory.peak(outputs)
+
     def kernel(self, work, like=None):
         """A scope that adds one kernel call's work, ``work()`` -> (FLOPs,
         bytes), scaled to this device's share of ``like`` when it is a
@@ -169,6 +184,8 @@ class CostCounter(TorchDispatchMode):
             return NotImplemented
         out = func(*args, **kwargs)
         self._count(func, args, kwargs, out)
+        if not self._quiet:
+            self.memory.allocated((args, kwargs), out)
         return out
 
     def _count(self, func, args, kwargs, out) -> None:
@@ -193,6 +210,61 @@ class CostCounter(TorchDispatchMode):
             shapes = [tuple(t.shape) for t in tree_leaves(args)
                       if isinstance(t, torch.Tensor)]
             self.log.append(f"{func} flops={flops:.0f} bytes={nbytes} {shapes}")
+
+
+class _LiveBytes:
+    """The storages that ops return new, each live from that op until it
+    dies: torch keeps one Python object for a storage while it lives, so
+    ``weakref.finalize`` on it marks its end.  Views and in-place results
+    share an operand's storage and add nothing.  A timeline of (storage,
+    +/- bytes) events gives the peak with any storages left out.
+    :meth:`close` ends the timeline: a storage that dies later frees
+    nothing here, and nothing of this object outlives it."""
+
+    def __init__(self):
+        self.live: dict[int, int] = {}            # id(storage) -> its event
+        self.events: list[tuple[int, int]] = []    # (first event, bytes)
+        self._finalizers: list[weakref.finalize] = []
+
+    def allocated(self, operands, out) -> None:
+        have = {id(t.untyped_storage()) for t in tree_leaves(operands)
+                if isinstance(t, torch.Tensor)}
+        for t in tree_leaves(out):
+            if not isinstance(t, torch.Tensor):
+                continue
+            s = t.untyped_storage()
+            key = id(s)
+            if key in have or key in self.live:
+                continue
+            tok, n = len(self.events), s.nbytes()
+            self.live[key] = tok
+            self.events.append((tok, n))
+            self._finalizers.append(weakref.finalize(s, self._freed, key, tok, n))
+
+    def close(self) -> None:
+        for f in self._finalizers:
+            f.detach()
+        self._finalizers.clear()
+
+    def _freed(self, key: int, tok: int, n: int) -> None:
+        if self.live.get(key) == tok:
+            del self.live[key]
+        self.events.append((tok, -n))
+
+    def peak(self, outputs=()) -> int:
+        from torch.distributed.tensor import DTensor
+
+        skip = set()
+        for t in tree_leaves(outputs):
+            if isinstance(t, torch.Tensor):
+                t = t.to_local() if isinstance(t, DTensor) else t
+                skip.add(self.live.get(id(t.untyped_storage())))
+        cur = top = 0
+        for tok, n in self.events:
+            if tok not in skip:
+                cur += n
+                top = max(top, cur)
+        return top
 
 
 class _KernelScope:

@@ -24,12 +24,25 @@ process (:func:`repro_torch.launch.mesh.fake_world`):
 
 A record carries the reference's keys: status, the cell's meta, the
 :class:`~repro_torch.launch.analysis.Roofline` terms, and a
-``memory_analysis`` with ``argument_size_in_bytes`` (the local shard
-bytes of every input) and ``output_size_in_bytes``; temporary bytes are
-not recorded (nothing tracks allocations of meta tensors).  ``lower_s``
-is the time to lay out the inputs, ``compile_s`` the step's run, and
-``wall_s`` the cell's whole time.  A failing cell is recorded as
-``status: error`` with its traceback and counted, never swallowed.
+``memory_analysis`` a device with ``argument_size_in_bytes`` (the local
+shard bytes of every input), ``output_size_in_bytes`` (of every output,
+arguments updated in place included, as XLA counts donated outputs) and
+``temp_size_in_bytes``: the peak of the local bytes the step allocates
+and holds at once, arguments and outputs left out
+(:meth:`~repro_torch.launch.analysis.CostCounter.temp_bytes`; a meta
+tensor has a storage with a size, which lives and dies as on a card).
+XLA's ``generated_code_size_in_bytes`` has no counterpart: an eager step
+generates no code.  A depth-extrapolated cell adds ``memory_depths``, the
+depths of the runs its memory comes from (:func:`memory_depths`).
+``lower_s`` is the time to lay out the inputs, ``compile_s`` the step's
+run, and ``wall_s`` the cell's whole time.  A failing cell is recorded
+as ``status: error`` with its traceback and counted, never swallowed.
+
+The hill-climb's knobs are the reference's: ``attn_bf16`` runs attention
+in the model's dtype (``attn_f32=False``), ``rules_override`` replaces
+logical-axis rules after the decode rule, ``remat`` and
+``microbatches`` pass to the train step, and ``run_cell``'s ``tag``
+suffixes the record's file name (``__<tag>``).
 
 Run: ``PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-4b
 --shape decode_32k`` (``--all`` for every cell, ``--multi-pod`` for
@@ -171,7 +184,8 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
                remat: str = "full", microbatches: int = 1,
                cfg: ModelConfig | None = None, shape: ShapeConfig | None = None,
                mesh_dims: tuple[int, ...] | None = None, run: bool = True,
-               log_ops: bool = False):
+               log_ops: bool = False, attn_bf16: bool = False,
+               rules_override: dict | None = None):
     """Lay out the cell's inputs on the mesh and, with ``run``, run its
     step once under a cost counter.  Returns (counter or None, meta dict).
 
@@ -182,6 +196,8 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
     from torch.distributed.tensor.experimental import implicit_replication
 
     cfg = cfg if cfg is not None else get_config(arch)
+    if attn_bf16:
+        cfg = dataclasses.replace(cfg, attn_f32=False)
     shape = shape if shape is not None else SHAPES[shape_name]
     dims, _ = production_shape(multi_pod, mesh_dims)
     chips = int(np.prod(dims))
@@ -195,6 +211,8 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
     if shape.kind == "decode" and pbytes / dims[-1] <= 10e9:
         rules["fsdp"] = ()
         rules["expert_fsdp"] = ()
+    if rules_override:
+        rules.update(rules_override)
 
     world = (nullcontext() if dist.is_initialized() else fake_world(chips))
     planner = _greedy_plans() if len(dims) == 3 else nullcontext()
@@ -239,7 +257,7 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
             arg_bytes = analysis.local_bytes(args)
             t_lower = time.perf_counter() - t0
             t0 = time.perf_counter()
-            out_bytes = None
+            out_bytes = temp_bytes = None
             if run:
                 counter = analysis.CostCounter(log_ops=log_ops)
                 with implicit_replication(), counter:
@@ -250,6 +268,7 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
                         logits = parallel.shard(logits, "batch", "model")
                         out = logits if shape.kind == "prefill" else (logits, out[1])
                 out_bytes = analysis.local_bytes(out)
+                temp_bytes = counter.temp_bytes(out)
             t_run = time.perf_counter() - t0
 
     param_bytes = _nbytes(specs["params"])
@@ -268,6 +287,7 @@ def lower_cell(arch: str, shape_name: str, *, multi_pod: bool,
         "param_bytes": param_bytes,
         "n_params": cfg.n_params(), "n_active_params": cfg.n_active_params(),
         "argument_size_in_bytes": arg_bytes, "output_size_in_bytes": out_bytes,
+        "temp_size_in_bytes": temp_bytes,
     }
     return counter, meta
 
@@ -277,12 +297,17 @@ def _raw_stats(counter) -> tuple[float, float, float, dict]:
             dict(counter.collectives.counts))
 
 
+_MEMORY = ("output_size_in_bytes", "temp_size_in_bytes")
+
+
 def scan_corrected_stats(arch: str, shape_name: str, *, multi_pod: bool,
                          remat: str, microbatches: int,
                          cfg: ModelConfig | None = None,
                          shape: ShapeConfig | None = None,
                          mesh_dims: tuple[int, ...] | None = None,
-                         ) -> tuple[float, float, float, dict]:
+                         attn_bf16: bool = False,
+                         rules_override: dict | None = None,
+                         ) -> tuple[float, float, float, dict, dict]:
     """Run the cell at depths 1 and 2, take the per-layer delta and
     extrapolate to the full depth, as the reference does.  The reference
     needs it because XLA counts a rolled layer scan once; eager PyTorch
@@ -291,39 +316,71 @@ def scan_corrected_stats(arch: str, shape_name: str, *, multi_pod: bool,
     scans of RWKV6 and the hybrid SSM far longer.  Every layer of a model
     runs the same ops (local and global layers differ in mask values
     only), so one delta holds for all.  Collective counts are those of
-    the depth-2 run."""
+    the depth-2 run.
+
+    The last item holds the output and temporary bytes, as
+    ``memory_analysis`` keys, from the depths :func:`memory_depths`
+    names.  Output bytes grow by a layer's parameters at every depth.
+    The temporary peak is a maximum over the step's timeline, and where
+    it lies can move with depth: command-r-plus-104b's ``train_4k`` with
+    4 microbatches peaks in the embedding's backward at depths 1 to 3
+    and in the saved activations from depth 4 on, so depths 1 and 2
+    would miss most of its peak at 64 layers.  So the memory comes from a
+    run at the full depth, seconds to a minute on meta tensors, except
+    where a layer loops over time steps."""
     cfg = cfg if cfg is not None else get_config(arch)
     L = cfg.n_layers
 
     def stats_at(depth: int):
-        c, _ = lower_cell(arch, shape_name, multi_pod=multi_pod, remat=remat,
-                          microbatches=microbatches, cfg=replace_layers(cfg, depth),
-                          shape=shape, mesh_dims=mesh_dims)
-        return _raw_stats(c)
+        c, meta = lower_cell(arch, shape_name, multi_pod=multi_pod, remat=remat,
+                             microbatches=microbatches, cfg=replace_layers(cfg, depth),
+                             shape=shape, mesh_dims=mesh_dims, attn_bf16=attn_bf16,
+                             rules_override=rules_override)
+        flops, byts, wire, counts = _raw_stats(c)
+        return [flops, byts, wire, *(meta[k] for k in _MEMORY)], counts
 
-    s1, s2 = stats_at(1), stats_at(2)
-    f1, f2 = np.array(s1[:3]), np.array(s2[:3])
+    (s1, _), (s2, counts) = stats_at(1), stats_at(2)
+    f1, f2 = np.array(s1, dtype=float), np.array(s2, dtype=float)
     per_layer = np.maximum(f2 - f1, 0.0)
     total = np.maximum(f2 + (L - 2) * per_layer, 0.0)
-    return float(total[0]), float(total[1]), float(total[2]), s2[3]
+    mem = {k: int(round(v)) for k, v in zip(_MEMORY, total[3:])}
+    if memory_depths(cfg) == [L] and L > 2:
+        _, meta = lower_cell(arch, shape_name, multi_pod=multi_pod, remat=remat,
+                             microbatches=microbatches, cfg=cfg, shape=shape,
+                             mesh_dims=mesh_dims, attn_bf16=attn_bf16,
+                             rules_override=rules_override)
+        mem = {k: meta[k] for k in _MEMORY}
+    return float(total[0]), float(total[1]), float(total[2]), counts, mem
+
+
+def memory_depths(cfg: ModelConfig) -> list[int]:
+    """The depths whose runs give an extrapolated cell's memory: the full
+    depth, or 1 and 2 (extrapolated) where a layer runs a Python loop
+    over time steps (RWKV6, the hybrid SSM), whose full-depth train and
+    prefill steps take hours on meta tensors."""
+    return [1, 2] if cfg.rwkv is not None or cfg.ssm is not None else [cfg.n_layers]
 
 
 def run_cell(arch: str, shape_name: str, *, multi_pod: bool, out_dir: str,
              save_hlo: bool = False, remat: str = "full",
              microbatches: int = 1, roofline: bool = True,
+             attn_bf16: bool = False, rules_override: dict | None = None,
+             tag: str = "",
              cfg: ModelConfig | None = None,
              shape: ShapeConfig | None = None,
              mesh_dims: tuple[int, ...] | None = None) -> dict:
-    """One cell -> its record, also written to ``out_dir``.  Train and
-    prefill cells with ``roofline`` lay their full-depth inputs out and
-    run at depths 1 and 2 (:func:`scan_corrected_stats`); the others run
-    once at full depth."""
+    """One cell -> its record, also written to ``out_dir`` (with ``tag``,
+    under a file name suffixed ``__<tag>``).  Train and prefill cells
+    with ``roofline`` lay their full-depth inputs out and run at depths 1
+    and 2 (:func:`scan_corrected_stats`); the others run once at full
+    depth."""
     t_cell = time.perf_counter()
     cfg = cfg if cfg is not None else get_config(arch)
     shape = shape if shape is not None else SHAPES[shape_name]
     mesh_name = "x".join(map(str, production_shape(multi_pod, mesh_dims)[0]))
     os.makedirs(out_dir, exist_ok=True)
-    out_path = os.path.join(out_dir, f"{arch}__{shape_name}__{mesh_name}.json")
+    suffix = f"__{tag}" if tag else ""
+    out_path = os.path.join(out_dir, f"{arch}__{shape_name}__{mesh_name}{suffix}.json")
 
     reason = cell_is_skipped(cfg, shape)
     if reason:
@@ -334,14 +391,19 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, out_dir: str,
         return rec
 
     kw = dict(multi_pod=multi_pod, remat=remat, microbatches=microbatches,
-              cfg=cfg, shape=shape, mesh_dims=mesh_dims)
+              cfg=cfg, shape=shape, mesh_dims=mesh_dims, attn_bf16=attn_bf16,
+              rules_override=rules_override)
     try:
         extrapolate = shape.kind in ("train", "prefill") and roofline
         counter, meta = lower_cell(arch, shape_name, run=not extrapolate,
                                    log_ops=save_hlo, **kw)
+        mem = {"argument_size_in_bytes": meta.pop("argument_size_in_bytes")}
+        mem.update((k, meta.pop(k)) for k in _MEMORY)
         if extrapolate:
-            flops, byts, wire, counts = scan_corrected_stats(arch, shape_name, **kw)
+            flops, byts, wire, counts, full = scan_corrected_stats(arch, shape_name, **kw)
+            mem.update(full)
             meta["compile_s"] = None
+            meta["memory_depths"] = memory_depths(cfg)
         else:
             flops, byts, wire, counts = _raw_stats(counter)
         roof = analysis.Roofline(
@@ -350,10 +412,6 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool, out_dir: str,
             model_flops=meta["model_flops"], bytes_per_device=None,
             collectives=counts, model_bytes=meta["model_bytes"],
         )
-        mem = {"argument_size_in_bytes": meta.pop("argument_size_in_bytes")}
-        out_bytes = meta.pop("output_size_in_bytes")
-        if out_bytes is not None:
-            mem["output_size_in_bytes"] = out_bytes
         rec = {"status": "ok", **meta, **roof.as_dict(), "memory_analysis": mem}
         if save_hlo and counter is not None:
             with open(out_path.replace(".json", ".ops.txt"), "w") as f:

@@ -39,7 +39,8 @@ import torch
 
 from ..kernels import ops
 from ..parallel import axis_extent, fsdp_gather, shard
-from ..parallel.api import index_copy_, is_dtensor, on_shards, reshard, take
+from ..parallel.api import (gather_rows, index_copy_, is_dtensor, on_shards, reshard,
+                            scatter_rows)
 from ..quant.int4 import approx_linear
 from .config import ModelConfig
 
@@ -716,6 +717,14 @@ def moe_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor, lut=None,
     inverse permutation and summed in ascending expert order, the order
     the reference's scatter-add takes on the CPU: a decode step captures
     once and replays bit for bit.  The router runs in float32.
+
+    Under a mesh the blocks are laid out as the reference's ``shard``
+    calls name them (experts over ``expert`` when ``E`` divides it, else
+    the slots over ``batch``), and no rank holds a whole block tensor or
+    the picks: each gathers its own blocks' rows of the tokens
+    (:func:`~repro_torch.parallel.api.gather_rows`), and the combine adds
+    each rank's gated outputs into its tokens, summed and scattered back
+    over ``batch`` (:func:`~repro_torch.parallel.api.scatter_rows`).
     """
     mo = cfg.moe
     B, S, D = x.shape
@@ -755,16 +764,15 @@ def moe_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor, lut=None,
     src = starts[:, None] + slot_c                            # (E, C) into order
     valid = slot_c < group_sizes[:, None]
     src = src.clamp(max=T * K - 1)
-    rows = (order // K)[src]                                  # (E, C) token ids
-    xs = take(flat, rows) * valid[..., None].to(flat.dtype)   # (E, C, D)
+    pick = order[src]                                         # (E, C) into T*K
+    rows = pick // K                                          # (E, C) token ids
     # expert parallelism when E divides the data axis (the classic MoE
     # all-to-all appears at the gather/scatter boundary); otherwise the
     # capacity axis stays data-parallel and expert weights stay FSDP
     ep = E % max(1, axis_extent("expert")) == 0 and axis_extent("expert") > 1
-    if ep:
-        xs = shard(xs, "expert", None, None)
-    else:
-        xs = shard(xs, None, "batch", None)
+    blk = ("expert", None, None) if ep else (None, "batch", None)
+    xs = gather_rows(flat, rows, *blk) * valid[..., None].to(flat.dtype)  # (E, C, D)
+    xs = shard(xs, *blk)
     # the expert stacks gathered over FSDP, never over the expert axis
     w1, w3, w2 = (p[n] if ep else fsdp_gather(p[n]) for n in ("w1", "w3", "w2"))
     h1 = torch.bmm(xs, w1)
@@ -772,24 +780,26 @@ def moe_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor, lut=None,
     hs = shard(silu(h1) * h3, "expert" if ep else None, None if ep else "batch",
                "model")
     ys = torch.bmm(hs, w2)                                    # (E, C, D)
+    if is_dtensor(ys):
+        # each rank adds its own blocks' gated outputs into their tokens
+        g_blk = torch.where(valid, gather_rows(gates.reshape(-1), pick, *blk[:2]), 0.0)
+        vals = shard(ys, *blk).float() * g_blk[..., None]
+        out = scatter_rows(vals, rows, T, "batch", None)
+    else:
+        # each (token, k) pick's place in its expert's block
+        inv = torch.empty_like(order).scatter(
+            0, order, torch.arange(T * K, device=dev))
+        slot = inv - starts[flat_e]                           # (T*K,)
+        kept = slot < C
+        picked = ys[flat_e, slot.clamp(max=C - 1)].float()    # (T*K, D)
+        contrib = torch.where(kept[:, None], picked * gates.reshape(-1, 1), 0.0)
+        contrib = contrib.reshape(T, K, D).gather(
+            1, idx.argsort(dim=-1)[..., None].expand(T, K, D))  # ascending expert
+        out = contrib[:, 0]
+        for k in range(1, K):
+            out = out + contrib[:, k]
 
-    # each (token, k) pick's place in its expert's block
-    inv = torch.empty_like(order).scatter(
-        0, order, torch.arange(T * K, device=dev))
-    slot = inv - starts[flat_e]                               # (T*K,)
-    kept = slot < C
-    picked = take(ys, flat_e, slot.clamp(max=C - 1)).float()  # (T*K, D)
-    contrib = torch.where(kept[:, None], picked * gates.reshape(-1, 1), 0.0)
-    # added site: the picks over "batch" alone before they fold to (T, K)
-    contrib = shard(contrib, "batch", None).reshape(T, K, D).gather(
-        1, idx.argsort(dim=-1)[..., None].expand(T, K, D))    # ascending expert
-    out = contrib[:, 0]
-    for k in range(1, K):
-        out = out + contrib[:, k]
-
-    # added site: tokens back over "batch" alone before they unflatten to
-    # (B, S), which DTensor cannot do from the dispatch's layout
-    out = shard(out, "batch", None).reshape(B, S, D).to(x.dtype)
+    out = out.reshape(B, S, D).to(x.dtype)
     for sp in p.get("shared", []):
         out = out + ffn(cfg, sp, x, lut, backend=backend)
     return out, aux

@@ -21,6 +21,7 @@ from torch.utils import checkpoint as _ckpt
 from ..device import resolve_device
 from ..kernels import ops
 from ..parallel import fsdp_gather, shard
+from ..parallel.api import is_dtensor, max_across, sum_across
 from ..precision.widths import width_from_lut
 from . import layers as L
 from .config import ModelConfig
@@ -187,8 +188,13 @@ def check_lut_depth(cfg: ModelConfig, luts, *, backend: ops.Backend = "auto") ->
 # aten ops whose outputs "dots" keeps: products without batch dimensions
 # (a (..., K) x (K, N) matmul folds its leading axes into one mm), as
 # jax.checkpoint_policies.dots_with_no_batch_dims_saveable keeps; the
-# attention's batched einsums (bmm) are recomputed
-_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+# attention's batched einsums (bmm) are recomputed.  Under a mesh it also
+# keeps the all-reduces' outputs: the sum that completes a product split
+# over ranks is the value XLA saves for that dot (GSPMD's all-reduce
+# follows it), while the operands' all-gathers are issued again in the
+# backward, as XLA issues them again
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+         torch.ops._c10d_functional.all_reduce.default)
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -276,10 +282,46 @@ def forward_lm(
 
 def next_token_nll(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """Mean cross-entropy of ``logits[:, t]`` (B, S, V) against
-    ``tokens[:, t + 1]``."""
-    logp = torch.log_softmax(logits[:, :-1], dim=-1)
+    ``tokens[:, t + 1]``.  Sharded DTensor logits run on each rank's
+    shards (:func:`_nll_on_shards`); replicated ones take the plain ops."""
     tgt = tokens[:, 1:].long()
+    if is_dtensor(logits) and any(p.is_shard() for p in logits.placements):
+        return _nll_on_shards(logits[:, :-1], tgt).mean()
+    logp = torch.log_softmax(logits[:, :-1], dim=-1)
     return -logp.gather(-1, tgt[..., None])[..., 0].mean()
+
+
+def _nll_on_shards(z, tgt):
+    """Each token's cross-entropy from DTensor logits ``z`` (B, S, V),
+    the vocabulary kept in its shards: each rank sums its own columns'
+    exponentials and its target logit, reduced across the mesh dims that
+    split ``V`` by explicit collectives, and the result keeps the batch
+    shards.  DTensor's own rules would gather the vocabulary for
+    ``log_softmax``, and the backward of ``gather`` from a replicated
+    gradient builds the whole (B, S, V) logits on every rank (637 GB for
+    qwen3-4b's ``train_4k``)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = z.device_mesh
+    vocab = [i for i, p in enumerate(z.placements) if p == Shard(2)]
+    rows = [p if p == Shard(0) else Replicate() for p in z.placements]
+    z = z.redistribute(mesh, [Shard(2) if i in vocab else p for i, p in enumerate(rows)])
+    if not isinstance(tgt, DTensor):
+        tgt = DTensor.from_local(tgt, mesh, [Replicate()] * mesh.ndim, run_check=False)
+    tgt = tgt.redistribute(mesh, rows)
+    cols = DTensor.from_local(torch.arange(z.shape[-1], device=z.device), mesh,
+                              [Replicate()] * mesh.ndim, run_check=False)
+    cols = cols.redistribute(mesh, [Shard(0) if i in vocab else Replicate()
+                                    for i in range(mesh.ndim)])
+
+    def local(zl, tl, cl):
+        m = max_across(zl.detach().amax(-1, keepdim=True), mesh, vocab)
+        e = sum_across(torch.exp(zl - m).sum(-1), mesh, vocab)
+        t = sum_across(torch.where(tl[..., None] == cl, zl, 0.0).sum(-1), mesh, vocab)
+        return torch.log(e) + m[..., 0] - t
+
+    return local_map(local, out_placements=rows, device_mesh=mesh)(z, tgt, cols)
 
 
 def lm_loss(cfg: ModelConfig, params: Params, batch: dict, *, lut=None,

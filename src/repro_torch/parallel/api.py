@@ -243,28 +243,191 @@ def on_shards(fn, *args, out_like=None):
     return local_map(fn, out_placements=out, device_mesh=lead.device_mesh)(*args)
 
 
-def take(x, *index):
-    """``x[index]``: advanced indexing of ``x``'s leading dims by integer
-    tensors.  Under a mesh a DTensor ``x`` and its indices are replicated
-    first and the indexing runs on the whole local tensors, so that its
-    backward is a plain ``index_put`` on each rank: some versions of
-    DTensor have no working sharding rule for the ``index_put`` that the
-    backward of a gather from a sharded tensor is.  Replicating is what
-    that gather needs anyway, its index reaching every row.  Without a
-    context or a DTensor ``x``, just ``x[index]``."""
+def gather_rows(x, index, *axes: str | None):
+    """``x[index]``: the rows of ``x`` that an integer ``index`` names,
+    the result laid out by the logical ``axes`` (one for each dim of
+    ``index``, then ``x``'s trailing dims, which stay whole).
+
+    Under a mesh each rank gathers only its own share of the result:
+    ``x`` is all-gathered along its row shards, and the rank indexes it by
+    its slice of ``index``.  The backward adds each rank's gradient rows
+    into a zero ``x``, summed over the ranks that split the result and
+    scattered back to ``x``'s row shards (:class:`_GatherRows`), so that
+    no rank holds the whole result, and DTensor's rules for ``index_put``
+    are never asked.  Without a context or a DTensor ``x``, just
+    ``x[index]``."""
     if current() is None:
         return x[index]
-    from torch.distributed.tensor import DTensor, Replicate
-    from torch.distributed.tensor.experimental import local_map
+    from torch.distributed.tensor import DTensor
 
     if not isinstance(x, DTensor):
         return x[index]
+    mesh, x, index, out, work = _rows_layout(x, index, axes)
+    gathered = [i for i, p in enumerate(x.placements) if p.is_shard()]
+    from torch.distributed.tensor.experimental import local_map
+
+    return local_map(
+        lambda xl, il: _GatherRows.apply(xl, il, mesh, gathered, work),
+        out_placements=out, device_mesh=mesh)(x, index)
+
+
+def scatter_rows(v, index, n: int, *axes: str | None):
+    """The adjoint of :func:`gather_rows`: an ``(n, ...)`` tensor of zeros
+    with each row ``v[j]`` added into row ``index[j]``, laid out by the
+    logical ``axes`` of its dims (the first sharded, if at all, the others
+    whole).  ``v`` has ``index``'s dims and then the rows'.
+
+    Each rank adds the rows of its own share of ``v`` into a
+    whole zero result, which is summed over the ranks that split ``v``
+    and scattered to the result's row shards (:class:`_ScatterRows`); the
+    backward gathers the result's gradient and indexes it.  ``v`` is a
+    DTensor under a mesh."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    ctx = current()
+    mesh = v.device_mesh
+    # v and its index alike: shards on the index's dims only, no partial sums
+    keep = [p if p.is_shard() and p.dim < index.ndim else Replicate()
+            for p in v.placements]
+    v = v.redistribute(mesh, keep)
+    index = _as_dtensor(index, mesh).redistribute(mesh, keep)
+    work = [i for i, p in enumerate(keep) if p.is_shard()]
+    out = placements(ctx.resolve((n, *v.shape[index.ndim:]), axes), mesh)
+    if any(p.is_shard() and p.dim != 0 for p in out):
+        raise ValueError(f"scatter_rows shards its rows only, not {axes}")
+    spread = [i for i, p in enumerate(out) if p.is_shard()]
+    return local_map(
+        lambda vl, il: _ScatterRows.apply(vl, il, n, mesh, spread, work),
+        out_placements=out, device_mesh=mesh)(v, index)
+
+
+def _as_dtensor(t, mesh):
+    from torch.distributed.tensor import DTensor, Replicate
+
+    if isinstance(t, DTensor):
+        return t
+    return DTensor.from_local(t, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+
+def _rows_layout(x, index, axes):
+    """``x`` with its row shards kept and every other dim whole, the
+    result's placements, ``index`` in them, and the mesh dims that split
+    the result."""
+    from torch.distributed.tensor import Replicate
+
     mesh = x.device_mesh
-    rep = [Replicate()] * mesh.ndim
-    args = [t.redistribute(mesh, rep) if isinstance(t, DTensor) else t
-            for t in (x, *index)]
-    return local_map(lambda src, *idx: src[idx], out_placements=rep,
-                     device_mesh=mesh)(*args)
+    x = x.redistribute(mesh, [p if p.is_shard() and p.dim == 0 else Replicate()
+                              for p in x.placements])
+    out = placements(current().resolve((*index.shape, *x.shape[1:]), axes), mesh)
+    if any(p.is_shard() and p.dim >= index.ndim for p in out):
+        raise ValueError(f"gather_rows shards the index's dims only, not {axes}")
+    index = _as_dtensor(index, mesh).redistribute(mesh, out)
+    return mesh, x, index, out, [i for i, p in enumerate(out) if p.is_shard()]
+
+
+def _collective(op: str, x, mesh, i: int, *args):
+    """A functional collective of ``x`` over mesh dim ``i``, waited on."""
+    c10d = torch.ops._c10d_functional
+    group = mesh.get_group(i)
+    if op == "all_reduce":
+        out = c10d.all_reduce(x.contiguous(), *args, group.group_name)
+    else:
+        out = getattr(c10d, op)(x.contiguous(), *args, group.size(), group.group_name)
+    return c10d.wait_tensor(out)
+
+
+def _all_gather_rows(x, mesh, dims):
+    """``x``'s row shards over mesh ``dims`` gathered, innermost first."""
+    for i in reversed(dims):
+        x = _collective("all_gather_into_tensor", x, mesh, i)
+    return x
+
+
+def _sum_to_row_shard(full, mesh, dims, work):
+    """Whole rows, partial over the mesh dims in ``work``, to this rank's
+    row shard over ``dims``: summed and scattered where a dim is in
+    ``work``, sliced where it is not, then summed over the rest of
+    ``work``."""
+    for i in dims:              # outermost first
+        if i in work:
+            full = _collective("reduce_scatter_tensor", full, mesh, i, "sum")
+        else:
+            full = full.chunk(mesh.size(i))[mesh.get_local_rank(i)]
+    for i in work:
+        if i not in dims:
+            full = _collective("all_reduce", full, mesh, i, "sum")
+    return full
+
+
+def max_across(x, mesh, dims):
+    """The elementwise max of each rank's local ``x`` over mesh ``dims``
+    (no gradient)."""
+    for i in dims:
+        x = _collective("all_reduce", x, mesh, i, "max")
+    return x
+
+
+def sum_across(x, mesh, dims):
+    """The sum of each rank's local ``x`` over mesh ``dims``, the same on
+    every rank of them; its gradient reaches each rank's term unchanged."""
+    return _SumAcross.apply(x, mesh, dims)
+
+
+class _SumAcross(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, dims):
+        for i in dims:
+            x = _collective("all_reduce", x, mesh, i, "sum")
+        return x
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+class _GatherRows(torch.autograd.Function):
+    """On local tensors: ``x``'s rows gathered over mesh dims
+    ``gathered``, indexed by this rank's ``index``; the ranks over mesh
+    dims ``work`` hold different shares of the result."""
+
+    @staticmethod
+    def forward(ctx, x, index, mesh, gathered, work):
+        full = _all_gather_rows(x, mesh, gathered)
+        ctx.save_for_backward(index)
+        ctx.mesh, ctx.gathered, ctx.work = mesh, gathered, work
+        ctx.full = (full.shape, full.dtype)
+        return full[index]
+
+    @staticmethod
+    def backward(ctx, grad):
+        (index,) = ctx.saved_tensors
+        shape, dtype = ctx.full
+        full = torch.zeros(shape, dtype=dtype, device=grad.device)
+        full.index_put_((index,), grad.to(dtype), accumulate=True)
+        return (_sum_to_row_shard(full, ctx.mesh, ctx.gathered, ctx.work),
+                None, None, None, None)
+
+
+class _ScatterRows(torch.autograd.Function):
+    """On local tensors: this rank's rows ``v`` added into ``n`` zero
+    rows at ``index``, summed over mesh dims ``work`` and left in this
+    rank's row shard over mesh dims ``spread``."""
+
+    @staticmethod
+    def forward(ctx, v, index, n, mesh, spread, work):
+        rows = v.shape[index.ndim:]
+        full = torch.zeros((n, *rows), dtype=v.dtype, device=v.device)
+        full.index_add_(0, index.reshape(-1), v.reshape(-1, *rows))
+        ctx.save_for_backward(index)
+        ctx.mesh, ctx.spread = mesh, spread
+        return _sum_to_row_shard(full, mesh, spread, work)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (index,) = ctx.saved_tensors
+        full = _all_gather_rows(grad, ctx.mesh, ctx.spread)
+        return full[index], None, None, None, None, None
 
 
 def on_matmul_shards(fn, a, b):

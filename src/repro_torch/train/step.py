@@ -59,8 +59,8 @@ def make_train_step(
                              f"{microbatches} microbatches")
         size = n // microbatches
         total_loss = None
-        total = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                 for p in tree_leaves(params)]
+        # laid out as its parameter under a mesh (a DTensor's zeros_like)
+        total = [torch.zeros_like(p, dtype=torch.float32) for p in tree_leaves(params)]
         for i in range(microbatches):
             mb = {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
             value, grads = value_and_grad(params, mb)

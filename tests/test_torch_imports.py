@@ -41,11 +41,13 @@ def test_port_imports_no_jax_and_no_reference():
     assert {"repro_torch.parallel", "repro_torch.parallel.api",
             "repro_torch.parallel.specs", "repro_torch.launch.mesh",
             "repro_torch.launch.dryrun", "repro_torch.launch.analysis"} <= mods
+    # the dry-run's hill-climb
+    assert {"repro_torch.experiments", "repro_torch.experiments.hillclimb"} <= mods
 
 
 def test_sharding_modules_load_no_test_internals():
-    """The sharding layer, the meshes, the roofline half of the analysis
-    and the dry-run load neither jax, nor repro, nor, until a fake world is
+    """The sharding layer, the meshes, the roofline half of the analysis,
+    the dry-run and its hill-climb load neither jax, nor repro, nor, until a fake world is
     started, any module of ``torch.testing._internal`` past those that
     ``import torch`` loads itself."""
     code = (
@@ -54,6 +56,7 @@ def test_sharding_modules_load_no_test_internals():
         "base = internal()\n"
         "import repro_torch.parallel, repro_torch.parallel.specs\n"
         "from repro_torch.launch import analysis, dryrun, mesh\n"
+        "import repro_torch.experiments.hillclimb\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad and internal() == base, (bad, internal() - base)\n"
         "with mesh.fake_world(4):\n"

@@ -19,6 +19,7 @@ to bit-equality on a gloo world of one.
 import dataclasses
 import functools
 import json
+import math
 
 import numpy as np
 import pytest
@@ -71,7 +72,9 @@ class _FakeMesh:
 
 MESHES = {"16x16": {"data": 16, "model": 16},
           "2x16x16": {"pod": 2, "data": 16, "model": 16}}
-RULES = {"default": {}, "decode": {"fsdp": (), "expert_fsdp": ()}}
+RULES = {"default": {}, "decode": {"fsdp": (), "expert_fsdp": ()},
+         # the hill-climb's rules_override (experiments/hillclimb.py)
+         "hillclimb": {"expert_fsdp": ()}}
 
 
 def contexts(mesh_name: str, rules: str):
@@ -442,6 +445,149 @@ def test_kernel_products_on_four_gloo_ranks_match_the_plain_product(tmp_path):
                        nprocs=4, join=True, start_method="spawn")
     for rank in range(4):
         assert json.loads((tmp_path / f"ok.{rank}").read_text()) == [True] * 3
+
+
+# the MoE dispatch's layouts on a real world: experts over data (E divides
+# it), the slots over batch (the expert rules emptied), and the tokens over
+# pod x data with the experts over data alone
+# (arch, mesh extents, axes, rules, the sharded step's remat)
+MOE_GLOO = [
+    ("deepseek-v2-lite-16b", (2, 2), ("data", "model"), {}, "none"),
+    ("mixtral-8x7b", (2, 2), ("data", "model"), {"expert": (), "expert_fsdp": ()}, "none"),
+    ("deepseek-v2-lite-16b", (2, 2, 1), ("pod", "data", "model"), {}, "none"),
+    # "dots" keeps the all-reduces' outputs: real collectives, recomputed around them
+    ("mixtral-8x7b", (2, 2), ("data", "model"), {}, "dots"),
+]
+MOE_GLOO_ATOL = 2e-6     # float32: the sharded sums run in another order
+
+
+def _moe_gloo_rank(rank: int, store_path: str, results: str) -> None:
+    """One rank of a four-rank gloo world: each ``MOE_GLOO`` case's
+    reduced train loss and its gradients on DTensors laid out by the
+    dry-run's specs, against the same step without a mesh (and without
+    rematerialisation: no policy changes a value)."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch.dryrun import _distribute
+    from repro_torch.models import lm
+    from repro_torch.models.config import ShapeConfig
+    from repro_torch.train.optim import tree_map
+
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, 4), rank=rank,
+                            world_size=4)
+    try:
+        shape = ShapeConfig("tiny_train", 16, 8, "train")
+        got = []
+        for arch, ext, axes, rules, remat in MOE_GLOO:
+            cfg = dataclasses.replace(get_config(arch, reduced=True), dtype="float32")
+            params = init_model(cfg, 0, device="cpu")
+            tokens = torch.as_tensor(np.random.default_rng(0).integers(
+                0, cfg.vocab_size, (shape.global_batch, shape.seq_len)), dtype=torch.int32)
+
+            def loss_and_grads(p, batch, remat="none"):
+                live = tree_map(lambda t: t.detach().requires_grad_(True), p)
+                loss = lm.lm_loss(cfg, live, batch, backend="ref", device="cpu",
+                                  remat=remat)
+                return loss, torch.autograd.grad(loss, tree_leaves(live))
+
+            want, want_grads = loss_and_grads(params, {"tokens": tokens})
+            m = init_device_mesh("cpu", ext, mesh_dim_names=axes)
+            with parallel.activate(m, rules) as ctx, implicit_replication():
+                p_d = _distribute(params, specs.named(m, specs.param_specs(ctx, params)), m)
+                b_spec = specs.batch_specs(cfg, shape, ctx)["tokens"]
+                t_d = distribute_tensor(tokens, m, parallel.api.placements(b_spec, m))
+                loss, grads = loss_and_grads(p_d, {"tokens": t_d}, remat)
+                loss = loss.full_tensor()
+                grads = [g.full_tensor() for g in grads]
+            got.append({"loss": float((loss - want).abs()),
+                        "grad": max(float((g - w).abs().max())
+                                    for g, w in zip(grads, want_grads)),
+                        "scale": max(float(w.abs().max()) for w in want_grads)})
+        with open(f"{results}.{rank}", "w") as f:
+            f.write(json.dumps(got))
+    finally:
+        dist.destroy_process_group()
+
+
+def test_moe_train_step_on_four_gloo_ranks_matches_the_plain_step(tmp_path):
+    """The repaired dispatch's numbers: the reduced MoE train loss and
+    every gradient on a four-rank gloo world, in each layout of
+    ``MOE_GLOO``, equal the step without a mesh within ``MOE_GLOO_ATOL``
+    (float32; each rank gathers its own blocks' rows and scatters its
+    gated outputs back, :func:`repro_torch.parallel.api.gather_rows`)."""
+    import torch.multiprocessing as mp
+
+    mp.start_processes(_moe_gloo_rank,
+                       args=(str(tmp_path / "store"), str(tmp_path / "moe")),
+                       nprocs=4, join=True, start_method="spawn")
+    for rank in range(4):
+        got = json.loads((tmp_path / f"moe.{rank}").read_text())
+        assert len(got) == len(MOE_GLOO)
+        for case, g in zip(MOE_GLOO, got):
+            assert g["loss"] <= MOE_GLOO_ATOL, (case, g)
+            assert g["grad"] <= MOE_GLOO_ATOL, (case, g)
+            assert g["scale"] > 1e-3, (case, g)     # the gradients are not all zero
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "mixtral-8x7b"])
+def test_moe_layer_temp_bytes_fall_as_data_grows(arch):
+    """No rank holds the dispatch's blocks or picks whole: in the MoE
+    layer's forward and backward at 16 x 256 tokens, on fake (2, 2) and
+    (4, 2) worlds, no local tensor has the shape of a whole ``(E, C, D)``
+    block or of the ``(T * K, D)`` picks (the replicated gathers of
+    the former ``parallel.api.take`` made both), and the temporary bytes a rank fall
+    as ``data`` grows."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch.dryrun import _distribute
+    from repro_torch.models import layers
+
+    class Shapes(TorchDispatchMode):
+        """The shapes of the local tensors the ops return, outside the
+        global-shape runs of DTensor's sharding propagation (where the
+        counter is quiet)."""
+
+        def __init__(self, counter):
+            super().__init__()
+            self.counter, self.seen = counter, set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(t.__name__ == "DTensor" for t in types):
+                return NotImplemented
+            out = func(*args, **(kwargs or {}))
+            if not self.counter._quiet:
+                self.seen.update(tuple(t.shape) for t in torch.utils._pytree.tree_leaves(out)
+                                 if isinstance(t, torch.Tensor))
+            return out
+
+    cfg = get_config(arch, reduced=True)
+    mo, T = cfg.moe, 16 * 256
+    C = math.ceil(T * mo.top_k / mo.n_experts * mo.capacity_factor)
+    whole = {(mo.n_experts, C, cfg.d_model), (T * mo.top_k, cfg.d_model)}
+    params = _meta(init_model(cfg, 0, device="cpu")["layers"][0]["moe"])
+    temp = {}
+    for data in (2, 4):
+        with mesh.fake_world(data * 2):
+            m = init_device_mesh("cpu", (data, 2), mesh_dim_names=("data", "model"))
+            with parallel.activate(m) as ctx, implicit_replication():
+                p = _distribute(params, specs.named(m, specs.param_specs(ctx, params)), m)
+                p = {k: (v.requires_grad_(True) if not isinstance(v, list) else v)
+                     for k, v in p.items()}
+                x = _dt((16, 256, cfg.d_model), m, [Shard(0), Replicate()],
+                        cfg.torch_dtype).requires_grad_(True)
+                c = analysis.CostCounter()
+                with c, Shapes(c) as shapes:
+                    out, aux = layers.moe_ffn(cfg, p, x, backend="ref")
+                    torch.autograd.grad(out.sum() + aux, [x, p["w1"], p["router"]])
+                temp[data] = c.temp_bytes()
+            assert not shapes.seen & whole, (data, shapes.seen & whole)
+    assert temp[4] < temp[2], temp
 
 
 # ---------------------------------------------------------------------------
