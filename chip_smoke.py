@@ -108,8 +108,12 @@ failing the run on any mismatch:
    stablelm-1.6b trained 5 steps at batch 8x128 through
    ``repro_torch.launch.train.main`` (loss finite, grad norm > 0, every
    parameter changed, ms a step by CUDA events, tokens/s, peak memory, no
-   kernel launched: the step differentiates the plain route); the
-   gradient guard raising before any launch; microbatches 2 against 1; a
+   kernel launched: the step differentiates the plain route); rwkv6-3b
+   at full width cut to 2 layers, in float32 at 4x1,024 tokens, its loss
+   and gradients through the WKV scan's autograd function (one state a
+   step saved) and through autograd over the plain loop (three), equal
+   within the float32 tolerance, each with its ms a step and peak memory;
+   the gradient guard raising before any launch; microbatches 2 against 1; a
    step bit-equal with and without deterministic algorithms; resume bit
    for bit through the launcher for whisper-tiny and reduced mixtral; and
    ``python -m repro_torch.examples.train_small`` exiting 0;
@@ -127,9 +131,9 @@ failing the run on any mismatch:
    repro_torch.launch.dryrun`` in seven processes started together and
    seeing no card, qwen3-4b at full width on a fake world (train, prefill
    and decode on 16x16, long_500k's skip record, the 2x16x16 train step)
-   and the MoE train steps of mixtral-8x7b and deepseek-v2-lite-16b on
-   16x16, each exiting 0, with its temporary and argument bytes a device
-   against the card's 80 GB; with them the hill-climb (``[hillclimb]``
+   and the MoE train steps of mixtral-8x7b and deepseek-v2-lite-16b and
+   rwkv6-3b's (which must fit the card) on 16x16, each exiting 0, with its
+   temporary and argument bytes a device against the card's 80 GB; with them the hill-climb (``[hillclimb]``
    lines): ``python -m repro_torch.experiments.hillclimb --step TAG``, one
    process a step, its nine iterations at full width, each ``ok``, and
    each pair's Pareto iterations and fastest
@@ -349,6 +353,13 @@ def time_ms(torch, fn, iters: int, warmup: int = 2) -> float:
 
 def fmt_ms(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def card_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` reads them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
 def bound(bytes_moved: float, ops: float, peak: str) -> tuple[float, str]:
@@ -3273,6 +3284,10 @@ TRAIN_RUN = ["--arch", "stablelm-1.6b", "--steps", 5, "--batch", 8, "--seq", 128
 RESUME_RUNS = [("whisper-tiny", False, ["--batch", 4, "--seq", 64]),
                ("mixtral-8x7b", True, ["--batch", 4, "--seq", 32])]
 TRAIN_SMALL_STEPS = 300
+# rwkv6-3b at full width, depth cut to 2 layers, in float32 so that the
+# two scans' gradients compare at the float32 tolerance; 4 x 1,024 tokens
+RWKV_TRAIN = {"layers": 2, "batch": 4, "seq": 1024, "seed": 0}
+RWKV_RTOL, RWKV_ATOL = 2e-5, 1e-6
 
 
 def phase_train(torch, results: dict) -> None:
@@ -3295,6 +3310,8 @@ def phase_train(torch, results: dict) -> None:
         out["whisper"] = train_whisper(torch, tmp)
         release(torch)
         out["stablelm"] = train_stablelm(torch)
+        release(torch)
+        out["rwkv6"] = train_rwkv(torch)
         release(torch)
         out["microbatches"] = train_microbatches(torch)
         out["deterministic"] = {arch: train_deterministic(torch, arch, reduced)
@@ -3472,6 +3489,84 @@ def train_stablelm(torch) -> dict:
             "ms_per_step": ms, "tokens_per_s": tok_s, "peak_allocated_gib": peak,
             "changed": changed, "tensors": len(leaves), "launches": counts,
             "seconds": secs, "guard": guard, "split": split}
+
+
+def train_rwkv(torch) -> dict:
+    """rwkv6-3b's loss and gradients (``RWKV_TRAIN``) through the WKV
+    scan's autograd function, which saves one float32 state a step, and
+    through autograd over the plain loop, which saves three: the loss
+    within the float32 tolerance (bit-equal expected: the forwards run the
+    same ops), every gradient within it against its tensor's largest
+    magnitude, and each route's ms a step (CUDA events, the second of two
+    steps) and peak allocated memory over a step."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_model, layers, lm
+    from repro_torch.train import DataState, synth_batch
+    from repro_torch.train.optim import tree_map
+
+    run = RWKV_TRAIN
+    cfg = dataclasses.replace(get_config("rwkv6-3b"), n_layers=run["layers"],
+                              dtype="float32")
+    params = init_model(cfg, seed=run["seed"], device="cuda")
+    batch = synth_batch(cfg, run["batch"], run["seq"], DataState(run["seed"], 0),
+                        device="cuda")
+    rw = cfg.rwkv
+    H = cfg.d_model // rw.head_dim
+    state_gb = run["batch"] * run["seq"] * H * rw.head_dim ** 2 * 4 / 1e9
+
+    def step():
+        live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+        loss = lm.lm_loss(cfg, live, batch, backend="ref")
+        return loss.detach(), torch.autograd.grad(loss, tree_leaves(live))
+
+    def route(scan) -> dict:
+        saved, layers.wkv_scan = layers.wkv_scan, scan
+        try:
+            step()                                   # warm-up
+            release(torch)
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            loss, grads = step()
+            ev[1].record()
+            ev[1].synchronize()
+            return {"loss": loss, "grads": grads, "ms": ev[0].elapsed_time(ev[1]),
+                    "peak_gb": (torch.cuda.max_memory_allocated() - base) / 1e9}
+        finally:
+            layers.wkv_scan = saved
+
+    reset_counts()
+    fn = route(layers.wkv_scan)
+    counts = read_counts()
+    loop = route(layers._rwkv_wkv_scan)
+    worst = max(float(((g - w).abs() / (RWKV_ATOL + RWKV_RTOL * w.abs().max())).max())
+                for g, w in zip(fn["grads"], loop["grads"]))
+    dloss = float((fn["loss"] - loop["loss"]).abs())
+    finite = bool(torch.isfinite(fn["loss"])) and all(
+        bool(torch.isfinite(g).all()) for g in fn["grads"])
+    require(finite and dloss <= RWKV_ATOL + RWKV_RTOL * float(loop["loss"].abs())
+            and worst <= 1.0 and not any(counts.values()),
+            f"rwkv6-3b train: loss {float(fn['loss'])} / {float(loop['loss'])}, "
+            f"worst gradient {worst:.3f} of the tolerance, finite {finite}, "
+            f"launches {counts}")
+    smi = card_line()
+    log(f"[train] rwkv6-3b ({run['layers']} of 32 layers, full width, float32, "
+        f"{run['batch']}x{run['seq']} tokens, seed {run['seed']}): loss "
+        f"{float(fn['loss']):.6f}, |dloss| {dloss:.3g} "
+        f"({'bit-equal' if dloss == 0 else 'within tolerance'}); every gradient within "
+        f"{worst:.3f} of rtol {RWKV_RTOL} (of its tensor's max) + atol {RWKV_ATOL}; "
+        f"autograd function {fn['ms']:.1f} ms a step, peak {fn['peak_gb']:.2f} GB; "
+        f"plain loop {loop['ms']:.1f} ms, peak {loop['peak_gb']:.2f} GB (loss and "
+        f"gradients, CUDA events; peak allocated over the step); one state a step "
+        f"{state_gb:.2f} GB a layer against three; kernel launches "
+        f"{sum(counts.values())}; {smi}")
+    return {"loss": float(fn["loss"]), "dloss": dloss, "worst_of_tolerance": worst,
+            "function_ms": fn["ms"], "loop_ms": loop["ms"],
+            "function_peak_gb": fn["peak_gb"], "loop_peak_gb": loop["peak_gb"],
+            "state_gb_a_layer": state_gb, "launches": counts, "nvidia_smi": smi}
 
 
 def train_step_split(torch, cfg, params, opt_state, B: int, S: int) -> dict:
@@ -3880,7 +3975,11 @@ DRYRUN_CELLS = ([["--arch", "qwen3-4b", "--shape", s]
                 + [["--arch", "qwen3-4b", "--shape", "train_4k", "--multi-pod",
                     "--no-roofline"]]
                 + [["--arch", arch, "--shape", "train_4k"]
-                   for arch in ("mixtral-8x7b", "deepseek-v2-lite-16b")])
+                   for arch in ("mixtral-8x7b", "deepseek-v2-lite-16b", "rwkv6-3b")])
+# cells whose temporary plus argument bytes must fit the card: rwkv6-3b's
+# train step held 152.63 GB a device before its WKV scan was split by
+# value columns and saved one state a step
+DRYRUN_FITS = {("rwkv6-3b", "train_4k")}
 DRYRUN_TIMEOUT_S = 400
 CARD_BYTES = 80e9          # the H100's HBM
 
@@ -3892,8 +3991,9 @@ def phase_dryrun(results: dict) -> None:
     all started together and each checked for exit code 0: qwen3-4b at
     full width on a fake 16x16 world for train, prefill and decode,
     ``long_500k``'s skip record, the 2x16x16 train step without the
-    roofline, and the MoE train steps of mixtral-8x7b and
-    deepseek-v2-lite-16b on 16x16; then the hill-climb's nine ``train_4k``
+    roofline, the MoE train steps of mixtral-8x7b and
+    deepseek-v2-lite-16b and rwkv6-3b's train step on 16x16 (which must
+    fit the card, ``DRYRUN_FITS``); then the hill-climb's nine ``train_4k``
     iterations of deepseek-v2-lite-16b, mixtral-8x7b and
     command-r-plus-104b.  The subprocesses see no card
     (``CUDA_VISIBLE_DEVICES`` empty): the dry-run runs on meta tensors by
@@ -3939,6 +4039,9 @@ def phase_dryrun(results: dict) -> None:
             continue
         require(rec["status"] == "ok", f"dryrun {' '.join(cell)}: {rec}")
         mem = rec["memory_analysis"]
+        held = mem["temp_size_in_bytes"] + mem["argument_size_in_bytes"]
+        require((rec["arch"], rec["shape"]) not in DRYRUN_FITS or held < CARD_BYTES,
+                f"dryrun {' '.join(cell)}: {held / 1e9:.2f} GB a device does not fit")
         log(f"[dryrun] {rec['arch']} {rec['shape']} {mesh}: ok, {rec['chips']} chips; "
             f"per device {rec['hlo_flops']:.4g} FLOP, {rec['hlo_bytes']:.4g} B, "
             f"{rec['wire_bytes']:.4g} wire B, collectives {rec['collectives']}; "
@@ -4043,9 +4146,7 @@ def phase_roofline(torch, cfg, params, results: dict) -> None:
                                    make_train_step, synth_batch)
     from repro_torch.train.optim import tree_map
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    smi = card_line()
     out: dict = {}
     reset_counts()
     with mesh.local_world("cuda"):
@@ -4261,9 +4362,7 @@ def main() -> int:
         require(k["launches"] > 0, f"{k['name']} was not launched on its main path")
     results["kernels"] = kernels
     results["seconds"] = time.perf_counter() - t_start
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    smi = card_line()
     results["nvidia_smi"] = smi
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

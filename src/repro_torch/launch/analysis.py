@@ -93,6 +93,12 @@ _COLLECTIVES = {
 }
 
 
+# DTensor's sharding-propagation methods, on its op dispatcher and its
+# sharding propagator, whichever of them a version of torch has
+_PROPAGATION = ("_propagate_op_sharding_dispatch_slow_path", "propagate",
+                "propagate_op_sharding_non_cached", "_propagate_tensor_meta_non_cached")
+
+
 def _nbytes(x) -> int:
     return x.numel() * x.element_size() if isinstance(x, torch.Tensor) else 0
 
@@ -116,21 +122,30 @@ class CostCounter(TorchDispatchMode):
     def __enter__(self):
         from torch.distributed.tensor import DTensor, placement_types
 
-        prop = DTensor._op_dispatcher.sharding_propagator
         self._saved = (ops.COUNTER, placement_types.shard_dim_alltoall)
         ops.COUNTER = self
         placement_types.shard_dim_alltoall = self._alltoall(self._saved[1])
-        # DTensor runs each new op once on global-shape fake tensors to
-        # learn its output's metadata: work no device does
-        prop._propagate_tensor_meta_non_cached = self._hide(
-            type(prop)._propagate_tensor_meta_non_cached.__get__(prop))
+        # DTensor's sharding propagation is work no device does: it runs
+        # each new op once on global-shape fake tensors to learn its
+        # output's metadata, and an op it decomposes on a fake mesh that it
+        # builds once a process, so that the cell counted first in a
+        # process would count ops the later ones do not.  Each entry point
+        # that this version of torch has is hidden
+        self._patched = []
+        for obj in (DTensor._op_dispatcher, DTensor._op_dispatcher.sharding_propagator):
+            for name in _PROPAGATION:
+                fn = getattr(type(obj), name, None)
+                if fn is not None:
+                    setattr(obj, name, self._hide(fn.__get__(obj)))
+                    self._patched.append((obj, name))
         return super().__enter__()
 
     def __exit__(self, *exc):
-        from torch.distributed.tensor import DTensor, placement_types
+        from torch.distributed.tensor import placement_types
 
         ops.COUNTER, placement_types.shard_dim_alltoall = self._saved
-        del DTensor._op_dispatcher.sharding_propagator._propagate_tensor_meta_non_cached
+        for obj, name in self._patched:
+            delattr(obj, name)
         self.memory.close()
         return super().__exit__(*exc)
 

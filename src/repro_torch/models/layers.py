@@ -23,7 +23,8 @@ every rank, an "added site" comment marks the constraint added here:
 ``split_heads`` and ``merge_heads`` around a head count the ``model``
 extent does not divide (their gradients sliced back, ``reshard``), the
 repeated KV heads, MLA's down-projection, the attention (the flash kernel
-too) and the RWKV scan run on local shards (``on_shards``), the SSM
+too) and the RWKV scan run on local shards (``on_shards``; the scan by
+value columns where ``model`` does not divide its heads), the SSM
 scan's inputs, the MoE dispatch's tokens, routing and picks, the
 embedding lookup (``embed``), and cache writes
 (``parallel.api.index_copy_``).  The LUT product runs on local shards in
@@ -40,7 +41,7 @@ import torch
 from ..kernels import ops
 from ..parallel import axis_extent, fsdp_gather, shard
 from ..parallel.api import (gather_rows, index_copy_, is_dtensor, on_shards, reshard,
-                            scatter_rows)
+                            scatter_rows, select_on_shards)
 from ..quant.int4 import approx_linear
 from .config import ModelConfig
 
@@ -220,8 +221,16 @@ def _repeat_heads(x: torch.Tensor, rep: int) -> torch.Tensor:
     """(B, S, Hkv, hd) -> (B, S, Hkv * rep, hd), head ``h`` repeated
     ``rep`` times in place, as ``repeat_interleave(rep, dim=2)``."""
     B, S, Hkv, hd = x.shape
+    m = axis_extent("model")
+    if Hkv % m and Hkv * rep % m == 0 and is_dtensor(x):
+        # added site: where "model" divides the query heads but not the KV
+        # heads, each rank takes the KV heads of its own query heads only;
+        # repeating them all would hold every query head's keys and values
+        # on every rank (GSPMD fuses the repeat into the product)
+        heads = shard(torch.arange(Hkv * rep, device=x.device) // rep, "model")
+        return select_on_shards(shard(x, "batch", None, None, None), 2, heads)
     out = x[:, :, :, None, :].expand(B, S, Hkv, rep, hd).reshape(B, S, Hkv * rep, hd)
-    if Hkv % axis_extent("model"):
+    if Hkv % m:
         # added site: under a mesh whose "model" extent does not divide
         # Hkv, the repeated heads' gradient comes back replicated, which
         # DTensor can fold onto Hkv heads (GSPMD reshards there silently)
@@ -855,12 +864,102 @@ def _rwkv_wkv_scan(r, k, v, w, u, state0):
     return torch.stack(ys, dim=1), state                      # (B,S,H,hd)
 
 
+class _WKVScan(torch.autograd.Function):
+    """:func:`_rwkv_wkv_scan` with a backward of its own, which keeps what
+    the reference's ``lax.scan`` keeps: the inputs and one float32 state a
+    step, where autograd over the loop keeps three (``kv``, ``state +
+    u·kv`` and ``state``).  The forward runs the loop's ops in its order,
+    so its values are the loop's bit for bit.  ``v`` and the states may
+    hold a slice ``hv`` of the value columns: each column is independent.
+
+    Backward, in reverse time, with ``g_t = r_t ⊗ dy_t`` and ``dS`` the
+    gradient of the state after step ``t``::
+
+        dr_t = (S_t + u⊙kv_t)·dy_t      dkv_t = dS + u⊙g_t  (-> dk_t, dv_t)
+        dw_t = Σ_i dS⊙S_t               du   += Σ_{b,i} g_t⊙kv_t
+        dS   <- w_t⊙dS + g_t
+    """
+
+    @staticmethod
+    def forward(ctx, r, k, v, w, u, state0):
+        B, S, H, hd = r.shape
+        # one buffer each, written a step at a time: a list stacked at the
+        # end would hold both at the peak
+        states = state0.new_empty((B, S, H, hd, v.shape[-1]))
+        ys = v.new_empty((B, S, H, v.shape[-1]))
+        state = state0
+        for t in range(S):
+            states[:, t] = state
+            rt, kt, vt, wt = r[:, t], k[:, t], v[:, t], w[:, t]
+            kv = kt[..., :, None] * vt[..., None, :]
+            y = torch.matmul(rt[..., None, :], state + u[None, :, :, None] * kv)
+            ys[:, t] = y[..., 0, :]
+            state = wt[..., None] * state + kv
+        ctx.save_for_backward(r, k, v, w, u, states)
+        return ys, state
+
+    @staticmethod
+    def backward(ctx, dy, d_state):
+        r, k, v, w, u, states = ctx.saved_tensors
+        dr, dk, dv, dw = (torch.empty_like(t) for t in (r, k, v, w))
+        du = torch.zeros_like(u)
+        uu = u[None, :, :, None]
+        dS = d_state
+        for t in reversed(range(r.shape[1])):
+            st = states[:, t]
+            rt, kt, vt, wt, dyt = r[:, t], k[:, t], v[:, t], w[:, t], dy[:, t]
+            kv = kt[..., :, None] * vt[..., None, :]
+            g = rt[..., :, None] * dyt[..., None, :]
+            dr[:, t] = torch.matmul(st + uu * kv, dyt[..., :, None])[..., 0]
+            dkv = dS + uu * g
+            dk[:, t] = torch.matmul(dkv, vt[..., :, None])[..., 0]
+            dv[:, t] = torch.matmul(kt[..., None, :], dkv)[..., 0, :]
+            dw[:, t] = (dS * st).sum(-1)
+            du += (g * kv).sum(-1).sum(0)
+            dS = wt[..., None] * dS + g
+        return dr, dk, dv, dw, du, dS
+
+
+def wkv_scan(r, k, v, w, u, state0):
+    """The WKV scan: :class:`_WKVScan` where autograd needs a gradient of
+    it, else the plain loop, which holds no step's state (prefill, decode
+    and the captured steps)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (r, k, v, w, u, state0)):
+        return _WKVScan.apply(r, k, v, w, u, state0)
+    return _rwkv_wkv_scan(r, k, v, w, u, state0)
+
+
 def _token_shift(x: torch.Tensor, x_last: torch.Tensor | None) -> torch.Tensor:
     """Each position's previous input: ``x_last`` (zeros if ``None``)
     for the first, then ``x`` shifted by one."""
     if x_last is None:
         x_last = torch.zeros_like(x[:, :1])
     return torch.cat([x_last, x[:, :-1]], dim=1)
+
+
+def _rwkv_mix(p: Params, x: torch.Tensor, x_prev_last, H: int, hd: int):
+    """The scan's inputs r, k, v and w (B, S, H, hd) float32 and the gate
+    g: what the time mix builds before its scan, in a function of its own
+    so that nothing else of it (the shifted input, the decay's low-rank
+    product) outlives it.  The decay comes first: under a mesh its float32
+    product is gathered whole, which then holds none of r, k and v beside
+    it."""
+    xprev = _token_shift(x, x_prev_last)
+
+    def mixed(mu):
+        return x + (xprev - x) * mu
+
+    def heads(w):
+        return split_heads(linear(mixed(p[f"mix_{w}"]), p[f"w{w}"]), H, hd).float()
+
+    xw = mixed(p["mix_w"])
+    dd = linear(torch.tanh(linear(xw, p["w_a"])), p["w_b"]).float()
+    w = torch.exp(-torch.exp(p["w0"][None, None] + dd))      # (B,S,D) in (0,1)
+    w = split_heads(w, H, hd)
+    del xw, dd
+    r, k, v = heads("r"), heads("k"), heads("v")
+    g = silu(linear(mixed(p["mix_g"]), p["wg"]))
+    return r, k, v, w, g
 
 
 def rwkv_time_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
@@ -876,28 +975,33 @@ def rwkv_time_mix(cfg: ModelConfig, p: Params, x: torch.Tensor,
         wkv0 = torch.zeros((B, H, hd, hd), dtype=torch.float32, device=x.device)
     else:
         x_prev_last, wkv0 = state
-    xprev = _token_shift(x, x_prev_last)
+    r, k, v, w, g = _rwkv_mix(p, x, x_prev_last, H, hd)
 
-    def mixed(mu):
-        return x + (xprev - x) * mu
-
-    def heads(w):
-        return split_heads(linear(mixed(p[f"mix_{w}"]), p[f"w{w}"]), H, hd).float()
-
-    r, k, v = heads("r"), heads("k"), heads("v")
-    g = silu(linear(mixed(p["mix_g"]), p["wg"]))
-    xw = mixed(p["mix_w"])
-    dd = linear(torch.tanh(linear(xw, p["w_a"])), p["w_b"]).float()
-    w = torch.exp(-torch.exp(p["w0"][None, None] + dd))      # (B,S,D) in (0,1)
-    w = split_heads(w, H, hd)
-
-    # added site: the scan's inputs with the time axis whole, the state as
-    # the cache's wkv spec and u by head, and the scan run on each rank's
-    # (batch, head) shards: no step of the loop communicates
-    r, k, v, w = (shard(t, "batch", None, "model", None) for t in (r, k, v, w))
-    wkv0 = shard(wkv0, "batch", "model", None, None)
-    y, wkv = on_shards(_rwkv_wkv_scan, r, k, v, w, shard(p["u"], "model", None),
-                       wkv0, out_like=(r, wkv0))
+    # added site: the scan's inputs with the time axis whole and the scan
+    # run on each rank's shards, so that no step of the loop communicates:
+    # by (batch, head) where ``model`` divides the heads, else by (batch,
+    # value column) where it divides the head dim, with r, k, w and u
+    # whole (each column of the state is independent), and the state laid
+    # back out as the cache's wkv spec after
+    m = axis_extent("model")
+    if H % m and hd % m == 0:
+        r, k, w = (shard(t, "batch", None, None, None) for t in (r, k, w))
+        # its gradient whole again before it reaches the head split, whose
+        # reshape some versions of DTensor refuse over a sharded last dim
+        v = reshard(v, "batch", None, None, "model")
+        wkv0 = shard(wkv0, "batch", None, None, "model")
+        y, wkv = on_shards(wkv_scan, r, k, v, w, shard(p["u"], None, None), wkv0,
+                           out_like=(v, wkv0))
+        # the columns gathered once the scan's inputs are gone, in the
+        # dtype the norm takes them in
+        del r, k, v, w
+        y = shard(y.to(x.dtype), "batch", None, None, None)
+        wkv = shard(wkv, "batch", "model", None, None)
+    else:
+        r, k, v, w = (shard(t, "batch", None, "model", None) for t in (r, k, v, w))
+        wkv0 = shard(wkv0, "batch", "model", None, None)
+        y, wkv = on_shards(wkv_scan, r, k, v, w, shard(p["u"], "model", None),
+                           wkv0, out_like=(r, wkv0))
     y = rmsnorm(merge_heads(y).to(x.dtype), p["ln_x"], cfg.norm_eps)
     out = linear(y * g, p["wo"])
     return out, (x[:, -1:], wkv)

@@ -221,26 +221,57 @@ def on_shards(fn, *args, out_like=None):
     DTensor arguments must be split alike along the dims ``fn`` treats
     independently (the plain ones are taken as replicated); each passes
     its local tensor, and each result becomes a DTensor in the layout of
-    its counterpart in ``out_like`` (a tensor, or a tuple for a tuple of
-    results; the first DTensor argument by default).  For work that is
-    independent along the sharded dims (attention and the RWKV scan over
-    batch and heads): DTensor would fold a batch shard and a head shard
-    into one dim, which some of its versions refuse, and would dispatch a
-    scan's every step.  Without a context or a DTensor argument, just
+    its counterpart in ``out_like`` (a DTensor or a placements list, or a
+    tuple of them for a tuple of results; the first DTensor argument by
+    default).  For work that is independent along the sharded dims
+    (attention and the RWKV scan over batch and heads): DTensor would fold
+    a batch shard and a head shard into one dim, which some of its
+    versions refuse, and would dispatch a scan's every step.
+
+    A DTensor argument may be whole where others are split (the RWKV
+    scan's ``r``, ``k`` and ``w`` beside ``v`` split by value columns):
+    every rank then adds its share to that argument's gradient, which is a
+    partial sum over each mesh dim that splits another argument, and is
+    handed back so.  Without a context or a DTensor argument, just
     ``fn(*args)``."""
     if current() is None:
         return fn(*args)
-    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import DTensor, Partial
 
     lead = next((a for a in args if isinstance(a, DTensor)), None)
     if lead is None:
         return fn(*args)
     from torch.distributed.tensor.experimental import local_map
 
+    mesh = lead.device_mesh
+    # one entry a leaf of the arguments, as local_map flattens them
+    leaves = torch.utils._pytree.tree_leaves(args)
+    work = {i for a in leaves if isinstance(a, DTensor)
+            for i, p in enumerate(a.placements) if p.is_shard()}
+    grads = tuple([Partial() if i in work and p.is_replicate() else p
+                   for i, p in enumerate(a.placements)]
+                  if isinstance(a, DTensor) else None for a in leaves)
     like = lead if out_like is None else out_like
-    out = (tuple(list(t.placements) for t in like) if isinstance(like, tuple)
-           else list(like.placements))
-    return local_map(fn, out_placements=out, device_mesh=lead.device_mesh)(*args)
+
+    def layout(t):
+        return list(t.placements) if isinstance(t, DTensor) else list(t)
+    out = tuple(layout(t) for t in like) if isinstance(like, tuple) else layout(like)
+    return local_map(fn, out_placements=out, in_grad_placements=grads,
+                     device_mesh=mesh)(*args)
+
+
+def select_on_shards(x, dim: int, index):
+    """``x.index_select(dim, index)`` under a mesh, on each rank's local
+    shards: ``x`` whole along ``dim`` and ``index`` a 1-D DTensor split
+    over mesh dims that do not split ``x``, so that each rank selects its
+    own share only.  The result is split along ``dim`` as ``index`` is and
+    elsewhere as ``x``; the gradient of ``x`` is a partial sum over
+    ``index``'s mesh dims (:func:`on_shards`)."""
+    from torch.distributed.tensor import Shard
+
+    out = [Shard(dim) if q.is_shard() else p
+           for p, q in zip(x.placements, index.placements)]
+    return on_shards(lambda xl, il: xl.index_select(dim, il), x, index, out_like=out)
 
 
 def gather_rows(x, index, *axes: str | None):
