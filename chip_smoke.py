@@ -1256,6 +1256,49 @@ def phase_fleet(torch, library: Path, results: dict) -> None:
     out["search_cli"] = {"seconds": secs, "lines": lines,
                          "launches": counts["template_eval"]}
     out["records"] = len(store)
+    out["mesh"] = fleet_mesh_job(torch, results)
+
+
+def fleet_mesh_job(torch, results: dict) -> dict:
+    """One ``mul_i4`` tensor job (ET 2, which finds sound results) through
+    ``TensorEngine(mesh=make_fleet_mesh())``, every visible card on the
+    ``data`` axis (one on a one-card host), held equal to the meshless
+    job's outcome at the population rounded to the mesh; its launches are
+    one a shard a generation and at the harvest."""
+    from repro_torch.core.engine import SearchJob, TensorEngine
+    from repro_torch.launch.mesh import make_fleet_mesh
+
+    mesh = make_fleet_mesh()
+    n = mesh.shape["data"]
+    kind, bits, et, opts = SEARCH_JOBS[1]
+    job = SearchJob(kind, bits, et, "tensor", budget_s=SEARCH_BUDGET_S)
+    reset_counts()
+    t0 = time.perf_counter()
+    got = TensorEngine(mesh=mesh, **opts).run(job)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    rounded = opts["population"] + (-opts["population"]) % n
+    want = TensorEngine(**{**opts, "population": rounded}).run(job)
+    gens = opts["generations"]
+    require(got.stats["generations"] == gens,
+            f"fleet mesh: ran {got.stats['generations']} of {gens} generations")
+    require(got.results and outcome_view(got) == outcome_view(want),
+            f"fleet mesh: {job.describe()} on a mesh of {n}: {len(got.results)} "
+            f"results, or it differs from the meshless job at population {rounded}")
+    require(counts["template_eval"] == n * (gens + 1)
+            and not any(counts[k] for k in counts if k != "template_eval"),
+            f"fleet mesh launches {counts}, expected template_eval {n} x ({gens} + 1)")
+    credit(results, "fleet mesh", counts, "template_eval")
+    log(f"[fleet] TensorEngine(mesh=make_fleet_mesh()): {n} device(s) on the data "
+        f"axis ({', '.join(str(d) for d in mesh.devices)}); {job.describe()} at "
+        f"population {rounded}: {len(got.results)} sound result(s), best area "
+        f"{got.best.area if got.results else None}, {got.stats['evaluations']} "
+        f"evaluations; outcome identical to the meshless job's; {secs:.3f} s; "
+        f"template_eval launches {counts['template_eval']} = {n} x ({gens} + 1)")
+    return {"devices": n, "population": rounded, "seconds": secs,
+            "results": len(got.results), "launches": counts["template_eval"],
+            "identical": True}
 
 
 # ---------------------------------------------------------------------------
@@ -3975,11 +4018,16 @@ DRYRUN_CELLS = ([["--arch", "qwen3-4b", "--shape", s]
                 + [["--arch", "qwen3-4b", "--shape", "train_4k", "--multi-pod",
                     "--no-roofline"]]
                 + [["--arch", arch, "--shape", "train_4k"]
-                   for arch in ("mixtral-8x7b", "deepseek-v2-lite-16b", "rwkv6-3b")])
+                   for arch in ("mixtral-8x7b", "deepseek-v2-lite-16b", "rwkv6-3b")]
+                + [["--arch", "hymba-1.5b", "--shape", "decode_32k"]])
 # cells whose temporary plus argument bytes must fit the card: rwkv6-3b's
 # train step held 152.63 GB a device before its WKV scan was split by
 # value columns and saved one state a step
 DRYRUN_FITS = {("rwkv6-3b", "train_4k")}
+# cells whose temporary bytes a device may not pass the reference's
+# (``tools/dryrun_memory.py --reference``): hymba-1.5b's decode held
+# 5,086,059,784 while it repeated its KV heads where "model" splits no head
+DRYRUN_REFERENCE_TEMP = {("hymba-1.5b", "decode_32k"): 4_558_231_104}
 DRYRUN_TIMEOUT_S = 400
 CARD_BYTES = 80e9          # the H100's HBM
 
@@ -4042,6 +4090,10 @@ def phase_dryrun(results: dict) -> None:
         held = mem["temp_size_in_bytes"] + mem["argument_size_in_bytes"]
         require((rec["arch"], rec["shape"]) not in DRYRUN_FITS or held < CARD_BYTES,
                 f"dryrun {' '.join(cell)}: {held / 1e9:.2f} GB a device does not fit")
+        ref_temp = DRYRUN_REFERENCE_TEMP.get((rec["arch"], rec["shape"]))
+        require(ref_temp is None or mem["temp_size_in_bytes"] <= ref_temp,
+                f"dryrun {' '.join(cell)}: temporary {mem['temp_size_in_bytes']} bytes a "
+                f"device, past the reference's {ref_temp}")
         log(f"[dryrun] {rec['arch']} {rec['shape']} {mesh}: ok, {rec['chips']} chips; "
             f"per device {rec['hlo_flops']:.4g} FLOP, {rec['hlo_bytes']:.4g} B, "
             f"{rec['wire_bytes']:.4g} wire B, collectives {rec['collectives']}; "
@@ -4050,6 +4102,10 @@ def phase_dryrun(results: dict) -> None:
             f"peaks); temp {mem['temp_size_in_bytes'] / 1e9:.2f} GB and arguments "
             f"{mem['argument_size_in_bytes'] / 1e9:.2f} GB a device of the card's "
             f"{CARD_BYTES / 1e9:.0f} GB; {rec['wall_s']:.1f} s on the host")
+        if ref_temp is not None:
+            log(f"[dryrun] {rec['arch']} {rec['shape']} {mesh}: temporary "
+                f"{mem['temp_size_in_bytes']} bytes a device, the reference's "
+                f"{ref_temp}")
     log(f"[dryrun] {len(cells)} cells and {len(STEPS)} hill-climb steps in {secs:.1f} s, "
         f"as {len(procs)} processes started together")
     results["dryrun"] = {"seconds": secs, "cells": cells}

@@ -206,13 +206,16 @@ def _check_metric(job: SearchJob, engine: str,
 
 
 class TensorEngine:
-    """Tensorized population search on one device.  ``search_kw`` go to
-    :func:`repro_torch.core.tensor_search.tensor_search` (``population``,
-    ``generations``, ``device``, ``backend``, ...)."""
+    """Tensorized population search on one device, or with its population
+    split over a fleet mesh's ``data`` axis
+    (:func:`repro_torch.launch.mesh.make_fleet_mesh`).  ``search_kw`` go
+    to :func:`repro_torch.core.tensor_search.tensor_search`
+    (``population``, ``generations``, ``device``, ``backend``, ...)."""
 
     name = "tensor"
 
-    def __init__(self, **search_kw):
+    def __init__(self, mesh=None, **search_kw):
+        self.mesh = mesh
         self.search_kw = search_kw
 
     def run(self, job: SearchJob) -> SearchOutcome:
@@ -220,7 +223,8 @@ class TensorEngine:
 
         _check_metric(job, self.name, ("wce", "mae"))
         return tensor_search(job.exact(), et=job.et, seed=job.seed,
-                             wall_budget_s=job.budget_s, **self.search_kw)
+                             wall_budget_s=job.budget_s, mesh=self.mesh,
+                             **self.search_kw)
 
 
 class AnnealEngine:
@@ -373,8 +377,8 @@ class InstrumentedEngine:
     ``run`` wraps the inner engine in a ``search.run`` span and folds the
     outcome's stats into the process registry (evaluations across
     engines, result counts, wall-time histogram, SMT solver seconds).
-    Everything else -- ``TensorEngine.search_kw`` among it -- passes
-    through untouched.
+    Everything else -- ``TensorEngine.mesh`` and ``search_kw`` among it
+    -- passes through untouched.
     """
 
     def __init__(self, inner) -> None:

@@ -12,8 +12,14 @@ winners are re-verified exhaustively and synthesized for true area.
 Differences from the JAX version: one explicit ``torch.Generator`` on the
 device replaces ``jax.random`` keys, so the random numbers differ from
 JAX's but a run with ``backend="auto"`` and one with ``backend="ref"``
-draw identical ones; and there is no ``mesh``: the population is not
-sharded over several GPUs (ROADMAP.md §1 queues that).
+draw identical ones.  Under a ``mesh``
+(:func:`repro_torch.launch.mesh.make_fleet_mesh`) the population is held
+on the mesh's first device, where the generator draws; each generation
+evaluates one contiguous shard of it on each device and gathers the
+fitness back for the argsort, where the reference keeps the population
+sharded over ``data``.  The draws are the one generator's either way, so
+a run on a mesh equals the meshless run at the same (rounded) population
+bit for bit.
 """
 
 from __future__ import annotations
@@ -99,6 +105,7 @@ def tensor_search(
     wall_budget_s: float | None = None,
     device: str | torch.device = "cuda",
     backend: ops.Backend = "auto",
+    mesh=None,
 ) -> SearchOutcome:
     """Evolve shared-template parameters toward minimal-area sound circuits.
 
@@ -106,25 +113,39 @@ def tensor_search(
     initial population, each tiled over a slab of it.  ``device``: where
     the population lives (``"cuda"`` unless the caller asks for
     ``"cpu"``); ``backend``: passed to ``ops.template_eval``.  The kernel
-    is launched once per generation and once at harvest.  A run cut by
-    ``wall_budget_s`` is not reproducible; one that the generation count
-    ends is.
+    is launched once per generation and once at harvest, on each device of
+    the mesh.  ``mesh``: a :class:`~repro_torch.launch.mesh.FleetMesh`
+    whose devices take the place of ``device``; ``population`` is rounded
+    up to a multiple of its ``data`` extent, as the reference rounds it.
+    A run cut by ``wall_budget_s`` is not reproducible; one that the
+    generation count ends is.
     """
-    dev = resolve_device(device)
+    if mesh is not None:
+        devices = list(mesh.devices)
+        # population must tile evenly over the data axis; round up
+        population += (-population) % mesh.shape["data"]
+    else:
+        devices = [resolve_device(device)]
+    dev = devices[0]
     n, m = exact.n_inputs, exact.n_outputs
     T = pit if pit is not None else 2 * m
     tpl = SharedTemplate(n, m, pit=T)
-    # the packed words as int32 with the same bits, once: both the kernel
-    # and the plain version take them so
-    in_tt = word_bits_int32(torch.from_numpy(input_truth_tables(n))).to(dev)
-    exact_vals = torch.from_numpy(exact.eval_words().astype(np.int32)).to(dev)
+    # the packed words as int32 with the same bits, once a device: both
+    # the kernel and the plain version take them so
+    in_tt = word_bits_int32(torch.from_numpy(input_truth_tables(n)))
+    exact_vals = torch.from_numpy(exact.eval_words().astype(np.int32))
+    tables = [(in_tt.to(d), exact_vals.to(d)) for d in devices]
     gen = torch.Generator(device=dev).manual_seed(seed)
     t0 = time.time()
 
+    def shards(x):
+        return [c.to(d) for c, d in zip(x.tensor_split(len(devices)), devices)]
+
     def fitness(lits, sel):
-        wce, esum = ops.template_eval(lits, sel, in_tt, exact_vals,
-                                      backend=backend)
-        return _fitness(lits, sel, wce, esum, et)
+        fits = [_fitness(lp, sp, *ops.template_eval(lp, sp, tt, ev, backend=backend), et)
+                for lp, sp, (tt, ev) in zip(shards(lits), shards(sel), tables)]
+        # the only step across shards: the fitness gathered for the argsort
+        return fits[0] if len(fits) == 1 else torch.cat([f.to(dev) for f in fits])
 
     def rand(shape):
         return torch.rand(shape, generator=gen, device=dev)

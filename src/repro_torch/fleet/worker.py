@@ -4,7 +4,10 @@ Own copy of ``repro.fleet.worker``.  Execution model (see the package
 docstring): the CPU-bound engines (anneal, muscat, mecals) are host numpy,
 so they fan out over a ``multiprocessing`` pool whose workers never touch
 CUDA; ``tensor`` jobs stay in the parent process, on the card it was
-given -- CUDA cannot be used in a process forked after it started.
+given -- CUDA cannot be used in a process forked after it started.  Where
+more than one card is visible, they run on a fleet mesh of all of them
+(:func:`repro_torch.launch.mesh.make_fleet_mesh`), their population split
+over its ``data`` axis, as the reference's worker does.
 
 Every finished job writes a receipt under ``<library>/_fleet/`` keyed by
 :meth:`SearchJob.key` plus a digest of its engine options (the same name
@@ -84,12 +87,13 @@ def _receipt_path(library_root: str | os.PathLike, job: SearchJob,
 
 def run_job(job: SearchJob, library_root: str | os.PathLike,
             engine_opts: dict | None = None,
-            device: str | torch.device | None = None) -> JobResult:
+            device: str | torch.device | None = None, mesh=None) -> JobResult:
     """Run one job and commit every sound candidate into the shared store.
 
     ``device``: where a ``tensor`` job runs (the tensor engine's own
-    default, the card, when ``None``).  It is runtime wiring, like the
-    reference's mesh: it goes to the engine's constructor, never into the
+    default, the card, when ``None``); ``mesh``: a fleet mesh whose
+    devices it runs on instead.  Both are runtime wiring, as the
+    reference's mesh: they go to the engine's constructor, never into the
     options a receipt records.  Top-level (picklable) so a
     multiprocessing pool can map over it.
     """
@@ -108,6 +112,8 @@ def run_job(job: SearchJob, library_root: str | os.PathLike,
     ctor_opts = dict(opts)
     if job.engine == "tensor" and device is not None:
         ctor_opts["device"] = device
+    if job.engine == "tensor" and mesh is not None:
+        ctor_opts["mesh"] = mesh
     store = OperatorStore(library_root)
     reg = get_registry()
     with trace_span("fleet.job", engine=job.engine,
@@ -215,8 +221,10 @@ def run_sweep(spec, library_root: str | os.PathLike, *,
 
     ``workers``: pool size for the CPU engines (0/1 = run everything
     sequentially in-process — deterministic, used by tests).  ``device``:
-    where the tensor jobs run, in this process.  Engines the port cannot
-    run (the SMT pair, which needs z3) are dropped with a notice.
+    where the tensor jobs run, in this process; without one they run on a
+    fleet mesh of every card where more than one is visible, as the
+    reference's do where ``jax.device_count() > 1``.  Engines the port
+    cannot run (the SMT pair, which needs z3) are dropped with a notice.
     """
     from .plan import plan_jobs
 
@@ -242,9 +250,14 @@ def run_sweep(spec, library_root: str | os.PathLike, *,
     else:
         results.extend(worker(j) for j in cpu_jobs)
 
+    mesh = None
+    if tensor_jobs and device is None and torch.cuda.device_count() > 1:
+        from ..launch.mesh import make_fleet_mesh
+
+        mesh = make_fleet_mesh()
     for j in tensor_jobs:
         results.append(run_job(j, library_root, engine_opts=spec.engine_opts,
-                               device=device))
+                               device=device, mesh=mesh))
 
     for r in results:
         log(f"  {r.job.describe():58s} {r.status:8s} "

@@ -14,13 +14,20 @@ The dry-run (:mod:`repro_torch.launch.dryrun`) builds the production
 meshes on :func:`fake_world`, a process group of any size in one process
 whose collectives move no data: it runs on any host and never touches a
 card, as the reference's dry-run forces 512 host devices.
+
+The search fleet's mesh (:func:`make_fleet_mesh`) is of another kind: the
+local devices of one process on one ``data`` axis, which
+:func:`repro_torch.core.tensor_search.tensor_search` splits its
+population over.  It needs no process group.
 """
 
 from __future__ import annotations
 
 import math
 from contextlib import contextmanager
+from dataclasses import dataclass
 
+import torch
 import torch.distributed as dist
 
 from ..device import resolve_device
@@ -73,6 +80,41 @@ def make_smoke_mesh(device: str = "cuda"):
                            "one with local_world()")
     n = dist.get_world_size()
     return init_device_mesh(dev.type, (1, n), mesh_dim_names=("data", "model"))
+
+
+@dataclass(frozen=True)
+class FleetMesh:
+    """Devices of this process on one ``data`` axis.  ``shape`` and
+    ``axis_names`` read as a jax mesh's do (``mesh.shape["data"]``).  One
+    process drives every device, as the reference's fleet worker drives
+    every local device; a ``DeviceMesh`` would need a process a rank."""
+
+    devices: tuple[torch.device, ...]
+    axis_names = ("data",)
+
+    @property
+    def shape(self) -> dict[str, int]:
+        return {"data": len(self.devices)}
+
+
+def make_fleet_mesh(devices=None) -> FleetMesh:
+    """Every visible card on one ``data`` axis, the search fleet's layout:
+    :func:`~repro_torch.core.tensor_search.tensor_search` evaluates a
+    contiguous shard of its population on each device, and the argsort
+    of the gathered fitness is the only step across shards.  ``devices``
+    names them instead (``["cpu"] * 3`` is three shards on the CPU).
+    Without a card and without ``devices`` it raises: it never falls back
+    to the CPU."""
+    if devices is None:
+        n = torch.cuda.device_count()
+        if n == 0:
+            raise RuntimeError("no CUDA device is visible; pass devices=[...] "
+                               "(e.g. ['cpu'] * 2) to build a fleet mesh on the CPU")
+        devices = [f"cuda:{i}" for i in range(n)]
+    devs = tuple(resolve_device(d) for d in devices)
+    if not devs:
+        raise ValueError("a fleet mesh needs at least one device")
+    return FleetMesh(devs)
 
 
 @contextmanager

@@ -179,9 +179,26 @@ def _masked_softmax_attn(q, k, v, q_pos, k_pos, window, k_valid=None,
     The repeat is a broadcast view: the backward of ``repeat_interleave``
     is an ``index_add_``, whose atomics make a CUDA gradient vary from run
     to run, where the broadcast's is a sum over the copies.
+
+    Under a mesh whose ``model`` extent divides neither H nor Hkv no head
+    is split, and the reference's reason to repeat (a grouped layout would
+    replicate the scores where ``model`` splits heads) does not hold: the
+    query heads are grouped over the KV heads instead
+    (:func:`_grouped_attention_core`), so no (B, Sk, H, hd) copy of the
+    keys or values exists, where XLA fuses the reference's repeat into
+    the products.  Outside a mesh the route is the repeat's.
     """
     H = q.shape[2]
     Hkv = k.shape[2]
+    m = axis_extent("model")
+    if Hkv != H and m > 1 and H % m and Hkv % m:
+        # added site: every rank holds all heads of its batch shard
+        q = shard(q, "batch", None, None, None)
+        k = shard(k, "batch", None, None, None)
+        v = shard(v, "batch", None, None, None)
+        out = on_shards(_grouped_attention_core, q, k, v, q_pos, k_pos, window,
+                        k_valid, f32_math)
+        return shard(out, "batch", None, None, None)
     if Hkv != H:
         k = _repeat_heads(k, H // Hkv)
         v = _repeat_heads(v, H // Hkv)
@@ -202,19 +219,57 @@ def _attention_core(q, k, v, q_pos, k_pos, window, k_valid, f32_math):
     out_dtype = q.dtype
     scale = 1.0 / math.sqrt(q.shape[-1])
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
-    mask = k_pos[None, :] <= q_pos[:, None]  # causal
-    if window is not None:
-        w = torch.as_tensor(window, device=q.device)
-        in_window = k_pos[None, :] > q_pos[:, None] - w
-        mask = mask & torch.where(w > 0, in_window, True)
-    if k_valid is not None:
-        mask = mask & k_valid[None, :]
+    mask = _attention_mask(q_pos, k_pos, window, k_valid, q.device)
     logits = torch.where(mask[None, None], logits, -1e30)
     probs = torch.softmax(logits, dim=-1)
     if not f32_math:
         probs = probs.to(v.dtype)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float())
     return out.to(out_dtype)
+
+
+def _attention_mask(q_pos, k_pos, window, k_valid, device) -> torch.Tensor:
+    """(Sq, Sk) bool: causal, within ``window`` where it is positive, and
+    ``k_valid``."""
+    mask = k_pos[None, :] <= q_pos[:, None]  # causal
+    if window is not None:
+        w = torch.as_tensor(window, device=device)
+        in_window = k_pos[None, :] > q_pos[:, None] - w
+        mask = mask & torch.where(w > 0, in_window, True)
+    if k_valid is not None:
+        mask = mask & k_valid[None, :]
+    return mask
+
+
+def _grouped_attention_core(q, k, v, q_pos, k_pos, window, k_valid, f32_math):
+    """:func:`_attention_core` with the H query heads folded as (Hkv, rep)
+    against the Hkv KV heads: k and v are upcast at Hkv heads and never
+    repeated.  The scores are laid out (B, Hkv, rep, Sq, Sk) from the
+    product on, so that no op copies them into another order.  The same
+    sums as the repeat's, in another product layout, so equal to it
+    within float32 rounding."""
+    B, Sq, H, hd = q.shape
+    Hkv = k.shape[2]
+    rep = H // Hkv
+    out_dtype = q.dtype
+    scale = 1.0 / math.sqrt(hd)
+    qg = q.float().reshape(B, Sq, Hkv, rep, hd).permute(0, 2, 3, 1, 4)
+    qg = qg.reshape(B, Hkv, rep * Sq, hd)
+    logits = (qg @ _heads_first(k).transpose(-1, -2)).view(B, Hkv, rep, Sq, -1) * scale
+    mask = _attention_mask(q_pos, k_pos, window, k_valid, q.device)
+    logits = torch.where(mask[None, None, None], logits, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    if not f32_math:
+        probs = probs.to(v.dtype)
+    out = probs.float().reshape(B, Hkv, rep * Sq, -1) @ _heads_first(v)
+    out = out.view(B, Hkv, rep, Sq, -1).permute(0, 3, 1, 2, 4)
+    return out.reshape(B, Sq, H, -1).to(out_dtype)
+
+
+def _heads_first(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, Hkv, d) -> float32 (B, Hkv, S, d), upcast and laid out for
+    the batched product in one copy."""
+    return x.transpose(1, 2).to(torch.float32, memory_format=torch.contiguous_format)
 
 
 def _repeat_heads(x: torch.Tensor, rep: int) -> torch.Tensor:

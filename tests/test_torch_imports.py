@@ -43,6 +43,8 @@ def test_port_imports_no_jax_and_no_reference():
             "repro_torch.launch.dryrun", "repro_torch.launch.analysis"} <= mods
     # the dry-run's hill-climb
     assert {"repro_torch.experiments", "repro_torch.experiments.hillclimb"} <= mods
+    # the quickstart (the fleet mesh lives in repro_torch.launch.mesh)
+    assert "repro_torch.examples.quickstart" in mods
 
 
 def test_sharding_modules_load_no_test_internals():
